@@ -1,0 +1,136 @@
+"""Byte-level tokenizer over the smoltts vocabulary, and the resolved
+control-token ids the generation loop needs.
+
+Vocabulary layout (the reference's byte-level init script):
+  ids 0..255      raw bytes
+  ids 256..270    control tokens
+  ids 271..319    <|speaker:0..48|>
+  ids 320..       <|semantic:0..codebook_size-1|>
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import List, Optional
+
+from smoltts_torch.config import DualARConfig, ModelType
+
+CONTROL_TOKENS = [
+    "system",
+    "user",
+    "assistant",
+    "<|british|>",
+    "<|american|>",
+    "<|male|>",
+    "<|female|>",
+    "<|unknown|>",
+    "<|endoftext|>",
+    "<|voice|>",
+    "<|semantic|>",
+    "<|pad|>",
+    "<|epad|>",
+    "<|im_start|>",
+    "<|im_end|>",
+]
+CONTROL_BLOCK_SIZE = 64  # control + speaker tokens span ids 256..319
+
+
+def special_token_list(codebook_size: int = 2048) -> List[str]:
+    speakers = [f"<|speaker:{i}|>" for i in range(CONTROL_BLOCK_SIZE - len(CONTROL_TOKENS))]
+    semantic = [f"<|semantic:{i}|>" for i in range(codebook_size)]
+    return [*CONTROL_TOKENS, *speakers, *semantic]
+
+
+class ByteTokenizer:
+    """Pure-Python byte-level tokenizer: special tokens by match, characters
+    below 256 by codepoint, anything else dropped (the HF byte-level vocab
+    has no entry for it)."""
+
+    _SPECIAL_RE = re.compile(r"<\|[^|<>]+\|>|system|user|assistant")
+
+    def __init__(self, codebook_size: int = 2048):
+        self.codebook_size = codebook_size
+        specials = special_token_list(codebook_size)
+        self._special_to_id = {s: 256 + i for i, s in enumerate(specials)}
+        self._id_to_special = {v: k for k, v in self._special_to_id.items()}
+        self.vocab_size = 256 + len(specials)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        if token in self._special_to_id:
+            return self._special_to_id[token]
+        if len(token) == 1 and ord(token) < 256:
+            return ord(token)
+        return None
+
+    def id_to_token(self, idx: int) -> Optional[str]:
+        if 0 <= idx < 256:
+            return chr(idx)
+        return self._id_to_special.get(idx)
+
+    @staticmethod
+    def _encode_chars(chunk: str, ids: List[int]) -> None:
+        ids.extend(ord(c) for c in chunk if ord(c) < 256)
+
+    def encode(self, text: str) -> List[int]:
+        ids: List[int] = []
+        pos = 0
+        for m in self._SPECIAL_RE.finditer(text):
+            self._encode_chars(text[pos : m.start()], ids)
+            tid = self._special_to_id.get(m.group(0))
+            if tid is not None:
+                ids.append(tid)
+            else:
+                self._encode_chars(m.group(0), ids)
+            pos = m.end()
+        self._encode_chars(text[pos:], ids)
+        return ids
+
+    def decode(self, ids: List[int]) -> str:
+        return "".join(
+            chr(i) if 0 <= i < 256 else self._id_to_special.get(i, "") for i in ids
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenConfig:
+    """Resolved control-token ids."""
+
+    im_end_id: int
+    pad_id: int
+    semantic_start_id: int
+    semantic_end_id: Optional[int] = None
+
+    @classmethod
+    def from_tokenizer(cls, model: ModelType, tokenizer, config: DualARConfig) -> "TokenConfig":
+        """`tokenizer` is anything with `.token_to_id`."""
+        im_end = tokenizer.token_to_id("<|im_end|>")
+        if im_end is None:
+            raise ValueError("Tokenizer does not have <|im_end|>")
+        modern = model.family == "dual_ar" or (
+            model.family == "fish" and model.version == "1.5"
+        )
+        if modern:
+            semantic_start_id = tokenizer.token_to_id("<|semantic:0|>")
+            semantic_end_id = tokenizer.token_to_id(
+                f"<|semantic:{config.codebook_size - 1}|>"
+            )
+        else:
+            semantic_start_id = tokenizer.token_to_id("<|semantic|>") or 5
+            semantic_end_id = None
+        pad_id = tokenizer.token_to_id("<|semantic|>") or 5
+        return cls(
+            im_end_id=im_end,
+            pad_id=pad_id,
+            semantic_start_id=semantic_start_id,
+            semantic_end_id=semantic_end_id,
+        )
+
+    @classmethod
+    def smoltts_v0(cls, codebook_size: int = 2048) -> "TokenConfig":
+        """Static resolution for the canonical byte-level vocab."""
+        return cls.from_tokenizer(
+            ModelType.smoltts_v0(),
+            ByteTokenizer(codebook_size),
+            DualARConfig(codebook_size=codebook_size),
+        )
