@@ -8,7 +8,11 @@ Phases:
   0  card name and power limit; require CUDA; TF32 off for matmul and cuDNN
   1  build the kernels (nvcc into build/smoltts_torch/) and time the build
   2  decode attention (K2) vs its plain version at the main path's shapes
-  3  fast micro-loop (K1) vs its plain version at 150M widths, B=64
+  3  fast micro-loop (K1) vs its plain version at 150M widths: B=64, the
+     ragged row counts 1, 7, 65, 130, and 8192 sampled draws; 70M widths at
+     B=64; identical codes
+     from two calls with one seed; device time, device kernels and wall time
+     per frame; the frame's products as cuBLAS bf16 matmuls (yardstick)
   4  sampler (K3) vs its plain version
   5  the main path as bench.py runs it: 150M int8 weights, kv8, B=64
      ChatML prompts, S=1024, attend bucket 256, temp 0.7 / 0.7 / min-p 0.05,
@@ -24,8 +28,10 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -39,6 +45,7 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 K2_GATE = 1e-2  # bf16 kernel vs the plain version's f32 math on the same inputs
 K1_BF16_LEVEL0_GATE = 0.9  # see phase 3
 REPEATS = 3  # measured passes of the main path (phase 5)
+K1_KERNELS = re.compile(r"\b(gemm_i8|fast_attn|fast_sample|init_h)\b")  # csrc/fast_loop.cu
 
 
 def log(msg: str) -> None:
@@ -83,6 +90,22 @@ def device_ms(fn, iters=20, warmup=3) -> float:
     times in a profiler window, over the calls (host dispatch excluded, so a
     microsecond kernel is not timed as its Python wrapper). CUDA-event time
     if the profiler sees no device time."""
+    return device_profile(fn, iters, warmup)[0]
+
+
+def device_profile(fn, iters=20, warmup=3):
+    """(device ms per call, device kernels per call, {kernel name: count per
+    call}) from one profiler window."""
+    prof = _profile(fn, iters, warmup)
+    events = prof.key_averages()
+    total = sum(_self_device_ms(e) for e in events)
+    kernels = {e.key: e.count / iters for e in events if _on_device(e)}
+    if total <= 0:
+        return time_ms(fn, iters, warmup=0), None, {}
+    return total / iters, sum(kernels.values()), kernels
+
+
+def _profile(fn, iters, warmup):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -93,12 +116,49 @@ def device_ms(fn, iters=20, warmup=3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(_self_device_ms(e) for e in prof.key_averages())
-    return total / iters if total > 0 else time_ms(fn, iters, warmup=0)
+    return prof
+
+
+def trace_kernels(prof):
+    """The window's device kernels as (name, start us, end us), by start."""
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    ks = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+          for e in events if e.get("cat") == "kernel"]
+    return sorted(ks, key=lambda k: k[1])
+
+
+def busy_us(kernels) -> float:
+    """Time the device runs at least one kernel (kernels of one stream may
+    overlap under programmatic dependent launch)."""
+    busy, end = 0.0, -math.inf
+    for _, t0, t1 in kernels:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy
+
+
+def k1_span(fn, iters=20, warmup=3):
+    """K1's device time per call: the median span from its first kernel's
+    start to its last kernel's end (its kernels overlap their neighbours under
+    programmatic dependent launch, so their durations do not add up), and
+    the device kernels per call: K1's own and all."""
+    kernels = trace_kernels(_profile(fn, iters, warmup))
+    own = [k for k in kernels if K1_KERNELS.search(k[0])]
+    per = len(own) // iters
+    spans = [own[i * per + per - 1][2] - own[i * per][1] for i in range(iters)]
+    return float(np.median(spans)) / 1e3, per, len(kernels) / iters
 
 
 def _self_device_ms(event) -> float:
     return getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0)) / 1e3
+
+
+def _on_device(event) -> bool:
+    return getattr(event, "device_type", None) is not None and "CUDA" in str(event.device_type)
 
 
 def bound(nbytes: float, flops: float):
@@ -290,20 +350,34 @@ class Smoke:
         hidden = torch.randn((B, cfg.dim), generator=g, device=dev)
         p32 = self._fast_f32_tree(params)
 
-        got = FL.fused_fast_micro_loop(p32, cfg, hidden, None, greedy)
-        ref = FL.fast_micro_loop_plain(p32, cfg, hidden, None, greedy)
-        f32_err = int((got.long() - ref.long()).abs().max().item())
-        log(f"[3 K1] f32 greedy: codes equal {bool((got == ref).all())} "
-            f"(max code difference {f32_err})")
-        check(f32_err == 0, "K1 f32 greedy codes differ from the plain version")
-
+        # f32 is exact FMAs in another order: greedy codes equal the plain
+        # loop's, at B=64 and at row counts that leave the 64-row tiles ragged.
         # bf16: the kernel rounds each matmul input to bf16 and keeps f32
         # between stages; the reference is the plain version's f32 math on the
         # same bf16-valued inputs. Rounding flips near-tied argmaxes, and a
         # flipped level changes the input of every later level, so whole rows
         # drift apart (row agreement ~0.84 in a CPU emulation of the kernel's
         # rounding on these random weights); level 0 sees no cascade and is
-        # the gated share.
+        # the gated share, pooled over the ragged row counts.
+        f32_err = 0
+        pooled = []
+        for Bx in (B, 1, 7, 65, 130):
+            hx = hidden if Bx == B else torch.randn((Bx, cfg.dim), generator=g, device=dev)
+            got = FL.fused_fast_micro_loop(p32, cfg, hx, None, greedy)
+            ref = FL.fast_micro_loop_plain(p32, cfg, hx, None, greedy)
+            err = int((got.long() - ref.long()).abs().max().item())
+            f32_err = max(f32_err, err)
+            log(f"[3 K1] f32 greedy B={Bx}: codes equal {bool((got == ref).all())} "
+                f"(max code difference {err})")
+            if Bx == B:
+                continue
+            hxb = hx.bfloat16()
+            got = FL.fused_fast_micro_loop(params, cfg, hxb, None, greedy)
+            ref = FL.fast_micro_loop_plain(p32, cfg, hxb.float(), None, greedy)
+            pooled.append((got[:, 0] == ref[:, 0]).float())
+        f32_err = max(f32_err, self._k1_70m(greedy))
+        check(f32_err == 0, "K1 f32 greedy codes differ from the plain version")
+
         hb = hidden.bfloat16()
         got = FL.fused_fast_micro_loop(params, cfg, hb, None, greedy)
         ref = FL.fast_micro_loop_plain(p32, cfg, hb.float(), None, greedy)
@@ -312,10 +386,20 @@ class Smoke:
         codes = (got == ref).float().mean().item()
         lvl0 = (got[:, 0] == ref[:, 0]).float().mean().item()
         rows16 = (got == ref16).all(1).float().mean().item()
-        log(f"[3 K1] bf16 greedy vs plain f32 math: level-0 agreement {lvl0:.4f} "
-            f"(gate {K1_BF16_LEVEL0_GATE}), row agreement {rows:.4f}, code agreement "
+        ragged0 = torch.cat(pooled).mean().item()
+        log(f"[3 K1] bf16 greedy vs plain f32 math: level-0 agreement {lvl0:.4f} at B=64, "
+            f"{ragged0:.4f} pooled over B=1,7,65,130 ({sum(len(p) for p in pooled)} rows) "
+            f"(gate {K1_BF16_LEVEL0_GATE}); B=64 row agreement {rows:.4f}, code agreement "
             f"{codes:.4f}; row agreement vs the plain bf16 path {rows16:.4f}")
         check(lvl0 >= K1_BF16_LEVEL0_GATE, f"K1 bf16 level-0 agreement {lvl0}")
+        check(ragged0 >= K1_BF16_LEVEL0_GATE, f"K1 bf16 ragged level-0 agreement {ragged0}")
+
+        # split-K is reduced in a fixed order: one seed, identical codes
+        twice = [FL.fused_fast_micro_loop(params, cfg, hb, torch.Generator(device=dev).manual_seed(11),
+                                          sampled) for _ in range(2)]
+        same = bool((twice[0] == twice[1]).all())
+        log(f"[3 K1] bf16 sampled B=64, two calls with one seed: codes identical {same}")
+        check(same, "K1 codes differ between two calls with one seed")
 
         # sampled: level-0 histogram of one hidden row against the masked softmax
         N = self.K1_DRAWS
@@ -344,7 +428,9 @@ class Smoke:
 
         gen = torch.Generator(device=dev).manual_seed(6)
         kernel = lambda: FL.fused_fast_micro_loop(params, cfg, hb, gen, sampled)
-        ms, wall_ms = device_ms(kernel, iters=20), time_ms(kernel, iters=20)
+        ms, own, per_call = k1_span(kernel, iters=20)
+        summed, _, names = device_profile(kernel, iters=20)
+        wall_ms = time_ms(kernel, iters=20)
         plain_ms = device_ms(lambda: FL.fast_micro_loop_plain(params, cfg, hb, gen, sampled), iters=5)
         lp = params["fast_layers"]
         D, Fi, CB, n, L = cfg.fast_dim, cfg.fast_intermediate_size, cfg.codebook_size, cfg.max_fast_seqlen, cfg.n_fast_layer
@@ -355,12 +441,65 @@ class Smoke:
                   + B * n * 4)
         flops = n * (L * 2 * B * (D * Nq + D * D + D * 2 * Fi + Fi * D) + 2 * B * D * CB)
         bms, by = bound(nbytes, flops)
-        log(f"[3 K1] B=64 bf16 sampled frame, device time per call: kernel {ms} ms, plain "
+        gemm_library_ms = self._k1_gemm_library_ms(cfg, params, B)
+        log(f"[3 K1] B=64 bf16 sampled frame, device time per call: kernel {ms} ms (first start "
+            f"to last end; its kernels' durations sum to {summed} ms as they overlap), plain "
             f"{plain_ms} ms, bound {bms} ms ({by}: {nbytes / 1e6:.1f} MB read once, "
-            f"{flops / 1e9:.1f} GFLOP); kernel wall per call with host dispatch {wall_ms} ms")
+            f"{flops / 1e9:.1f} GFLOP); kernel wall per call with host dispatch {wall_ms} ms; "
+            f"device kernels per call {per_call} ({own} of K1's own); gemm_library_ms "
+            f"{gemm_library_ms} (the frame's {n * (4 * L + 1)} products as cuBLAS bf16 matmuls)")
+        for name, count in sorted(names.items(), key=lambda kv: -kv[1]):
+            log(f"[3 K1]   x{count:<6g} {name[:100]}")
+        check(own <= 192, f"K1 launches {own} device kernels per frame")
         self.record("fast_loop", source="smoltts_torch/csrc/fast_loop.cu",
                     replaces="smoltts_tpu/ops/fast_loop.py:105", max_abs_err=float(f32_err),
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+
+    def _k1_70m(self, greedy) -> int:
+        """The 70M preset's widths (D 576, 9/3 heads, F 1536): f32 greedy
+        codes of the kernel against the plain loop at B=64; the largest code
+        difference."""
+        from smoltts_torch.config import smoltts_byte_70m
+        from smoltts_torch.models.dual_ar import init_params
+        from smoltts_torch.ops import fast_loop as FL
+        from smoltts_torch.ops.quant import fuse_decode_params, quantize_decode_params
+
+        torch, dev = self.torch, self.dev
+        cfg = smoltts_byte_70m().replace(dropout=0.0, use_gradient_checkpointing=False)
+        params = quantize_decode_params(fuse_decode_params(
+            init_params(cfg, torch.Generator().manual_seed(1), dtype=torch.float32, device=dev)))
+        hidden = torch.randn((64, cfg.dim), generator=torch.Generator(device=dev).manual_seed(13),
+                             device=dev)
+        got = FL.fused_fast_micro_loop(params, cfg, hidden, None, greedy)
+        ref = FL.fast_micro_loop_plain(params, cfg, hidden, None, greedy)
+        err = int((got.long() - ref.long()).abs().max().item())
+        log(f"[3 K1] 70M f32 greedy B=64: codes equal {bool((got == ref).all())} "
+            f"(max code difference {err})")
+        return err
+
+    def _k1_gemm_library_ms(self, cfg, params, B):
+        """Device ms of one frame's K1 products (per level: per layer qkv, wo,
+        w13 as one [D, 2F] product, w2; then the head slice) as cuBLAS bf16
+        matmuls on dequantized weights. A yardstick for the hand GEMMs; the
+        port never calls it."""
+        from smoltts_torch.ops.quant import dequantize, qindex
+
+        torch, dev = self.torch, self.dev
+        lp = params["fast_layers"]
+        L, n = cfg.n_fast_layer, cfg.max_fast_seqlen
+        trunk = [[dequantize(qindex(lp[k], l)) for k in ("wqkv", "wo", "w13", "w2")] for l in range(L)]
+        heads = [dequantize(qindex(params["fast_output"], i)) for i in range(n)]
+        g = torch.Generator(device=dev).manual_seed(12)
+        x = torch.randn((B, cfg.fast_dim), generator=g, device=dev).bfloat16()
+        act = torch.randn((B, cfg.fast_intermediate_size), generator=g, device=dev).bfloat16()
+
+        def frame():
+            for i in range(n):
+                for wqkv, wo, w13, w2 in trunk:
+                    x @ wqkv, x @ wo, x @ w13, act @ w2
+                x @ heads[i]
+
+        return device_ms(frame, iters=10)
 
     def phase4_sampler(self):
         from smoltts_torch.ops import sampling as SP
@@ -546,14 +685,13 @@ class Smoke:
                     step(params, mimi, state, mstate, gen)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            ev = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+            ev = [e for e in prof.key_averages() if _on_device(e)]
             dev_time = _self_device_ms
-            busy = sum(dev_time(e) for e in ev)
+            busy = busy_us(trace_kernels(prof)) / 1e3
             top = sorted(ev, key=dev_time, reverse=True)[:8]
             log(f"[5 main] profiler, 5 stream steps: wall {wall:.2f} ms, device busy "
-                f"{busy:.2f} ms ({busy / wall:.3f} busy share, {1 - busy / wall:.3f} idle), "
-                f"{sum(e.count for e in ev)} kernel launches")
+                f"{busy:.2f} ms ({busy / wall:.3f} busy share, {1 - busy / wall:.3f} idle; the "
+                f"union of kernel intervals), {sum(e.count for e in ev)} kernel launches")
             for e in top:
                 log(f"[5 main]   {dev_time(e):9.3f} ms  x{e.count:<5d} {e.key[:90]}")
         except Exception as e:  # the profiler is a diagnostic: its absence fails nothing

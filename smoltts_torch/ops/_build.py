@@ -102,6 +102,7 @@ def lib(verbose: bool = False) -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build(verbose)))
             _declare(handle)
+            check(handle.smoltts_fast_loop_setup(), "fast_loop setup")
             _lib = handle
     return _lib
 
@@ -135,8 +136,8 @@ def _declare(h: ctypes.CDLL) -> None:
     ]
     h.smoltts_fast_loop.restype = I
     h.smoltts_fast_loop.argtypes = [P, P]  # &FastLoopArgs, stream
-    h.smoltts_fast_loop_part_floats.restype = ctypes.c_longlong
-    h.smoltts_fast_loop_part_floats.argtypes = [I, I, I, I, I]  # B, D, F, CB, Nq
+    h.smoltts_fast_loop_setup.restype = I  # dynamic shared memory of the GEMMs, once
+    h.smoltts_fast_loop_setup.argtypes = []
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -6,7 +6,9 @@ runs it as the CUDA kernel sequence of csrc/fast_loop.cu for a CUDA tensor
 and as the plain loop for a CPU tensor; it takes the trees that
 `supports_fused_fast` accepts: the released DualAR family (depthwise_wte,
 depthwise_output, duplicate_code_0, no fast qkv bias) with an int8 fast
-trunk and head, w1/w3 or fused w13.
+trunk and head, w1/w3 or fused w13. The kernel also needs every width
+(dim, intermediate, codebook, qkv) to be a multiple of 16, and raises
+otherwise.
 """
 
 from __future__ import annotations
@@ -124,8 +126,8 @@ class _FastLoopArgs(ctypes.Structure):
         + [(n, ctypes.c_void_p) for n in (
             "hidden", "wqkv", "wqkv_s", "wo", "wo_s", "w1", "w1_s", "w3", "w3_s",
             "w2", "w2_s", "anorm", "fnorm", "fast_norm", "wte", "head", "head_s",
-            "cos", "sin", "seed", "h", "hn", "qkv", "att", "act", "kc", "vc",
-            "logits", "codes", "part")]
+            "cos", "sin", "seed", "h", "ssq", "qkv", "att", "act", "kc", "vc",
+            "logits", "codes")]
     )
 
 
@@ -166,6 +168,9 @@ def _kernel(params, cfg: DualARConfig, x0: torch.Tensor, generator, settings) ->
             raise ValueError("fast_loop kernel: w1 and w3 layouts differ")
     head = params["fast_output"]
     Nq = D + 2 * KV * hd
+    for name, width in (("dim", D), ("intermediate", Fi), ("codebook", CB), ("qkv", Nq)):
+        if width % 16:
+            raise ValueError(f"fast_loop kernel: {name} width {width} is not a multiple of 16")
     checks = [
         (lp["wqkv"].q, torch.int8, (L, D, Nq)), (lp["wqkv"].scale, torch.float32, (L, 1, Nq)),
         (lp["wo"].q, torch.int8, (L, D, D)), (lp["wo"].scale, torch.float32, (L, 1, D)),
@@ -188,12 +193,12 @@ def _kernel(params, cfg: DualARConfig, x0: torch.Tensor, generator, settings) ->
     seed = (torch.zeros(2, dtype=torch.int64, device=dev) if greedy
             else philox_seed(generator, dev))
     f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.lib()
     scratch = dict(
-        h=torch.empty((B, D), **f32), hn=torch.empty((B, D), **f32),
-        qkv=torch.empty((B, Nq), **f32), att=torch.empty((B, D), **f32),
-        act=torch.empty((B, Fi), **f32), kc=torch.empty((L, n, B, KV * hd), **f32),
+        h=torch.empty((B, D), **f32), ssq=torch.empty((-(-D // 128), B), **f32),
+        qkv=torch.empty((B, Nq), **f32), att=torch.empty((B, D), dtype=x0.dtype, device=dev),
+        act=torch.empty((B, Fi), dtype=x0.dtype, device=dev), kc=torch.empty((L, n, B, KV * hd), **f32),
         vc=torch.empty((L, n, B, KV * hd), **f32), logits=torch.empty((B, CB), **f32),
-        part=torch.empty((_build.lib().smoltts_fast_loop_part_floats(B, D, Fi, CB, Nq),), **f32),
     )
     codes = torch.empty((B, n), dtype=torch.int32, device=dev)
     esz = 4  # the scale tensors are f32
@@ -216,7 +221,7 @@ def _kernel(params, cfg: DualARConfig, x0: torch.Tensor, generator, settings) ->
         codes=codes.data_ptr(),
         **{k: v.data_ptr() for k, v in scratch.items()},
     )
-    code = _build.lib().smoltts_fast_loop(ctypes.addressof(args), _build.stream_ptr(dev))
+    code = lib.smoltts_fast_loop(ctypes.addressof(args), _build.stream_ptr(dev))
     _build.check(code, "fast_loop")
     ops.LAUNCHES["fast_loop"] += 1
     return codes

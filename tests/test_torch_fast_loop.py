@@ -1,7 +1,13 @@
 """PyTorch port, fast micro-loop: greedy codes of the plain loop (what the
 fused-loop wrapper runs on the CPU) equal the JAX package's XLA loop and its
 Pallas kernel in interpret mode exactly, on the tiny config of
-tests/test_fast_loop.py, for the w1/w3 and the fused w13 trees."""
+tests/test_fast_loop.py, for the w1/w3 and the fused w13 trees. Also the
+CUDA kernel's host side that runs without a card: the ctypes argument
+struct against the C source, and the widths the wrapper refuses."""
+
+import ctypes
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +27,9 @@ from smoltts_torch.config import tiny_debug_config
 from smoltts_torch.interop import params_from_jax_numpy
 from smoltts_torch.lm.decode import _fast_micro_loop
 from smoltts_torch.lm.samplers import GenerationSettings
+from smoltts_torch.ops import fast_loop as FL
 from smoltts_torch.ops.fast_loop import (
+    _FastLoopArgs,
     fast_micro_loop_plain,
     fused_fast_micro_loop,
     supports_fused_fast,
@@ -89,3 +97,39 @@ def test_sampled_codes_in_range():
     codes = fast_micro_loop_plain(params, cfg, torch.from_numpy(_hidden(8, cfg.dim)), gen, settings)
     assert codes.shape == (8, cfg.max_fast_seqlen)
     assert int(codes.min()) >= 0 and int(codes.max()) < CB
+
+
+def _c_struct_fields(source: str, name: str):
+    """(field, ctypes type) of `struct name { ... };` in a C source: int and
+    float fields map to c_int / c_float, every pointer to c_void_p."""
+    body = re.search(r"struct\s+" + name + r"\s*\{(.*?)\};", source, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        first, *rest = decl.split(",")
+        ctype, var = re.match(r"(.*?)(\w+)$", first.strip(), re.S).groups()
+        pointer = "*" in ctype
+        base = ctype.replace("const", "").replace("*", "").strip()
+        for v in [var] + [r.strip() for r in rest]:
+            fields.append((v, ctypes.c_void_p if pointer else
+                           {"int": ctypes.c_int, "float": ctypes.c_float}[base]))
+    return fields
+
+
+def test_args_struct_mirrors_c():
+    """A mismatch between the ctypes mirror and the C struct is silent on the
+    card (every later field is read at the wrong offset)."""
+    src = (Path(__file__).resolve().parents[1] / "smoltts_torch" / "csrc" / "fast_loop.cu").read_text()
+    want = _c_struct_fields(src, "FastLoopArgs")
+    got = [(f, t) for f, t in _FastLoopArgs._fields_]
+    assert got == want
+    assert len(want) > 40 and want[-1] == ("codes", ctypes.c_void_p)
+
+
+def test_kernel_refuses_widths_it_cannot_take():
+    """The CUDA kernel moves 16-byte chunks: a width that is not a multiple of
+    16 is refused by the wrapper before anything is launched."""
+    _, cfg, _, params = _trees(True, fast_dim=72, dim=72)
+    assert supports_fused_fast(cfg, params)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        FL._kernel(params, cfg, torch.zeros(2, 72), None, GREEDY)

@@ -1,6 +1,7 @@
-"""PyTorch port, package rules: the port and chip_smoke.py import neither JAX
-nor the JAX package, importing the port builds nothing, and every entry
-point refuses to fall back to the CPU when no device is named."""
+"""PyTorch port, package rules: the port, chip_smoke.py and the port's
+scripts import neither JAX nor the JAX package, importing the port builds
+nothing, and every entry point refuses to fall back to the CPU when no
+device is named."""
 
 import ast
 import os
@@ -53,7 +54,8 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                              ROOT / "scripts" / "torch_k1_products.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_static_scan_has_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "smoltts_tpu")]
