@@ -11,173 +11,468 @@
 // flushed = pos + 1.
 //
 // Bound on an H100: bytes. At B=64, 4 kv heads, hd 64, lim 256, W 128, kv8,
-// one call reads 4.2 MB of history (k, v, scales) and 4.2 MB of bf16 tail:
-// ~2.5 us at 3.35 TB/s; the arithmetic (2 * 12 heads * 64 * 384 FMAs per row)
-// is negligible.
-// Design: one 256-thread block per (kv head, row). The 3 query heads of the
-// group are loaded once into shared memory. Pass 1: one thread per cache
-// position computes the group's logits with 16-byte loads of its key row and
-// keeps them in shared memory (lim + W floats per head, so no online
-// rescaling is needed). Block reductions give max and sum per head. Pass 2:
-// threads own one head-dim column each and walk a quarter of the positions,
-// reading value rows coalesced; partial sums meet in shared memory. All
-// arithmetic is f32; the output is rounded once to the compute dtype.
+// one call reads ~7.8 MB (int8 history with its scales, the valid bf16 tail
+// rows): ~2.3 us at 3.35 TB/s; with G <= 8 query heads per kv head there are
+// ~2G operations per byte, far below the tensor cores' ridge, so the kernel
+// runs on the CUDA cores. At these sizes the bytes are few and the chain of
+// dependent loads is what takes the time, so the design cuts the chain:
+// - Flash-decoding split. The valid positions of one (row, kv head) are cut
+//   into equal contiguous chunks, one per warp of a 256-thread block and,
+//   where B x n_kv blocks would leave the card idle (small B, long attend
+//   buckets), over up to 8 blocks of one thread-block cluster. Each warp
+//   computes all G query heads of the group over its chunk.
+// - Tiles of 32 rows, all loads of a tile in flight before any use. Logits:
+//   lane r takes row r whole, its key row in 16-byte loads (int8 converts to
+//   f32 by a byte permute and one subtraction), q broadcast from shared
+//   memory prescaled to log2 units; no shuffles sum a row, and each lane
+//   computes one exp2 per head. Values: a lane owns 8 head dims, so one load
+//   instruction covers 4 (hd 64) or 2 (hd 128) consecutive rows, 16 bytes a
+//   lane of a bf16 row and 8 of an int8 row; the probabilities pass through
+//   shared memory. History and tail rows share the layout, so one
+//   accumulator serves both.
+// - Each warp keeps an online softmax in f32 registers: a running max
+//   (warp-uniform) and sum per head, the accumulator rescaled when the max
+//   grows. There is no logits buffer and no block-wide reduction per head.
+// - Only valid rows are read: warp 0 first compacts the tail columns whose
+//   tail_pos lies in [flushed, pos] (one ballot per 32 columns); history
+//   rows at or past min(flushed, lim) are never touched.
+// - The warps' partial (max, sum, acc[G][hd]) meet in shared memory in warp
+//   order, and the cluster's blocks through distributed shared memory in
+//   rank order, so the result is deterministic.
+// The host picks the split from B, n_kv, lim + W, the SM count and each
+// variant's occupancy, all queried once at load
+// (smoltts_decode_attention_setup); nothing is set per call. All arithmetic
+// is f32; the output is rounded once to the compute dtype.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 using namespace smoltts;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxGroup = 8;
-constexpr int kMaxHd = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kDims = 8;        // head dims a lane owns
+constexpr int kMaxGroup = 8;    // query heads per kv head
+constexpr int kMaxW = 1024;     // tail columns (compacted in shared memory)
+constexpr int kMaxSplits = 8;   // blocks per (row, kv head): a portable cluster
+constexpr int kMinRows = 16;    // a warp's least share of positions after a split
 
-// Load n (= hd) elements of a row into f32 registers, 16 bytes at a time.
+int g_sms = 0;          // SM count, set by smoltts_decode_attention_setup
+int g_occ[2][2][2][2];  // resident blocks per SM: [dtype][hist][hd 128][group > 3]
+
+// 8 consecutive elements of a row as loaded: 8 bytes of int8, 16 of bf16, 32
+// of f32.
 template <typename E>
-__device__ __forceinline__ float dot_row(const E* __restrict__ row, const float* q, int hd) {
-  float acc = 0.f;
-  constexpr int per = 16 / sizeof(E);
-  for (int d0 = 0; d0 < hd; d0 += per) {
-    uint4 raw = *reinterpret_cast<const uint4*>(row + d0);
-    const E* e = reinterpret_cast<const E*>(&raw);
+struct Raw {
+  uint32_t w[2 * sizeof(E)];
+};
+
+template <typename E>
+__device__ __forceinline__ void load_raw(Raw<E>& r, const E* p) {
+  if constexpr (sizeof(E) == 1) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    r.w[0] = v.x;
+    r.w[1] = v.y;
+  } else {
 #pragma unroll
-    for (int j = 0; j < per; ++j) acc += q[d0 + j] * to_f(e[j]);
+    for (int i = 0; i < (int)sizeof(E) / 2; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      r.w[4 * i] = v.x;
+      r.w[4 * i + 1] = v.y;
+      r.w[4 * i + 2] = v.z;
+      r.w[4 * i + 3] = v.w;
+    }
   }
-  return acc;
 }
 
-template <typename T, typename HT, bool KV8>
-__global__ void __launch_bounds__(kThreads)
+// The elements of n words as f32: int8 v becomes the float 2^23 + (v + 128),
+// built from its bits, minus 2^23 + 128, which gives v exactly; bf16 is the
+// upper half of an f32.
+template <typename E, int N>
+__device__ __forceinline__ void words_to_f(const uint32_t* w, float* f) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (sizeof(E) == 1) {
+      const uint32_t x = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        f[4 * i + k] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 + k)) - 8388736.f;
+    } else if constexpr (sizeof(E) == 2) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      f[i] = __uint_as_float(w[i]);
+    }
+  }
+}
+
+template <typename E>
+__device__ __forceinline__ void to_f8(const Raw<E>& r, float (&f)[kDims]) {
+  words_to_f<E, 2 * sizeof(E)>(r.w, f);
+}
+
+// One warp over rows [i0, i1) of one source: the history (SCALED with kv8)
+// or the tail (INDIRECT: row i is column cols[i]), 32 rows a tile. Logits:
+// lane r takes row r of the tile whole (its key row in 16-byte loads, q
+// broadcast from shared memory, prescaled to log2 units), so no shuffles sum
+// them and each lane computes one exp per head. Values: a lane owns 8 head
+// dims of RPW rows per load (the accumulator layout), the probabilities come
+// through shared memory. All loads of a tile are in flight before any use.
+// Updates the warp's online softmax state (m, l) and the lane's accumulator.
+template <typename E, bool SCALED, bool INDIRECT, int HD, int GM>
+__device__ __forceinline__ void attend(const E* __restrict__ kb, const E* __restrict__ vb,
+                                       const float* __restrict__ ksc,
+                                       const float* __restrict__ vsc, const int* cols, int i0,
+                                       int i1, int G, const float* qs, float* pw, float (&m)[GM],
+                                       float (&l)[GM], float (&acc)[GM][kDims]) {
+  constexpr int EPC = 16 / sizeof(E);  // elements per 16-byte chunk
+  constexpr int NC = HD / EPC;         // chunks per key row
+  constexpr int KB = NC < 8 ? NC : 8;  // key chunks in flight
+  constexpr int LPR = HD / kDims, RPW = 32 / LPR, NV = 32 / RPW;  // value loads per lane
+  constexpr int VMAX = 16 / (int)sizeof(E);
+  constexpr int VB = NV < VMAX ? NV : VMAX;  // value loads in flight
+  constexpr int PG = GM <= 4 ? 4 : 8;
+  const int lane = threadIdx.x & 31, grp = lane / LPR, sub = lane % LPR;
+  for (int t0 = i0; t0 < i1; t0 += 32) {
+    const bool ok = t0 + lane < i1;
+    const long long r = ok ? (INDIRECT ? cols[t0 + lane] : t0 + lane) : 0;
+    const E* krow = kb + r * HD;
+    uint4 kc[KB];
+    Raw<E> vr[VB];
+    auto load_k = [&](int c0) {
+#pragma unroll
+      for (int k = 0; k < KB; ++k)
+        kc[k] = ok ? __ldg(reinterpret_cast<const uint4*>(krow + (c0 + k) * EPC))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    };
+    auto load_v = [&](int u0) {
+#pragma unroll
+      for (int u = 0; u < VB; ++u) {
+        const int j = t0 + (u0 + u) * RPW + grp;
+        if (j < i1) {
+          const long long rv = INDIRECT ? cols[j] : j;
+          load_raw(vr[u], vb + rv * HD + sub * kDims);
+        } else {
+          vr[u] = Raw<E>{};
+        }
+      }
+    };
+    load_k(0);
+    load_v(0);
+    float ks = 1.f, vs = 1.f;
+    if (SCALED && ok) {
+      ks = __ldg(ksc + r);
+      vs = __ldg(vsc + r);
+    }
+    float dot[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) dot[g] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += KB) {
+      if (c0 > 0) load_k(c0);
+#pragma unroll
+      for (int k = 0; k < KB; ++k) {
+        const uint32_t w4[4] = {kc[k].x, kc[k].y, kc[k].z, kc[k].w};
+        float f[EPC];
+        words_to_f<E, 4>(w4, f);
+        const float4* q4 = reinterpret_cast<const float4*>(qs) + (c0 + k) * EPC / 4;
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+#pragma unroll
+          for (int j = 0; j < EPC / 4; ++j) {
+            const float4 qv = q4[g * HD / 4 + j];
+            dot[g] = fmaf(qv.x, f[4 * j], dot[g]);
+            dot[g] = fmaf(qv.y, f[4 * j + 1], dot[g]);
+            dot[g] = fmaf(qv.z, f[4 * j + 2], dot[g]);
+            dot[g] = fmaf(qv.w, f[4 * j + 3], dot[g]);
+          }
+        }
+      }
+    }
+    // Online softmax over the tile, per head (the max is warp-wide).
+    float pv[PG];
+#pragma unroll
+    for (int g = 0; g < PG; ++g) pv[g] = 0.f;
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      const float x = ok ? dot[g] * ks : -INFINITY;
+      const float mn = fmaxf(m[g], warp_max(x));
+      const float alpha = mn == -INFINITY ? 1.f : exp2f(m[g] - mn);
+      const float p = x == -INFINITY ? 0.f : exp2f(x - mn);
+      m[g] = mn;
+      l[g] = l[g] * alpha + p;  // this lane's rows; summed over the warp at the end
+#pragma unroll
+      for (int j = 0; j < kDims; ++j) acc[g][j] *= alpha;
+      pv[g] = p * vs;
+    }
+#pragma unroll
+    for (int g = 0; g < PG; g += 4)
+      *reinterpret_cast<float4*>(pw + lane * PG + g) = make_float4(pv[g], pv[g + 1], pv[g + 2], pv[g + 3]);
+    __syncwarp();
+#pragma unroll
+    for (int u0 = 0; u0 < NV; u0 += VB) {
+      if (u0 > 0) load_v(u0);
+#pragma unroll
+      for (int u = 0; u < VB; ++u) {
+        float vf[kDims], pp[PG];
+        to_f8(vr[u], vf);
+        const float* prow = pw + ((u0 + u) * RPW + grp) * PG;
+#pragma unroll
+        for (int g = 0; g < PG; g += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(prow + g);
+          pp[g] = t.x;
+          pp[g + 1] = t.y;
+          pp[g + 2] = t.z;
+          pp[g + 3] = t.w;
+        }
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+#pragma unroll
+          for (int j = 0; j < kDims; ++j) acc[g][j] = fmaf(pp[g], vf[j], acc[g][j]);
+        }
+      }
+    }
+    __syncwarp();  // pw is rewritten by the next tile
+  }
+}
+
+// Grid (splits, n_kv, B); a cluster is the `splits` blocks of one (row, kv head).
+template <typename T, typename HT, bool KV8, int HD, int GM>
+__global__ void __launch_bounds__(kThreads, GM <= 4 ? 2 : 1)
 decode_attn_kernel(const T* __restrict__ q, const HT* __restrict__ k_hist,
                    const HT* __restrict__ v_hist, const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale, long long hsb, long long hsh, long long ssb,
                    long long ssh, const T* __restrict__ k_tail, const T* __restrict__ v_tail,
                    const int* __restrict__ pos, const int* __restrict__ flushed,
-                   const int* __restrict__ tail_pos, T* __restrict__ out, int H, int n_kv, int hd,
+                   const int* __restrict__ tail_pos, T* __restrict__ out, int H, int n_kv,
                    int lim, int W) {
-  extern __shared__ float lg[];  // [G][lim + W] logits, then probabilities
-  __shared__ float qs[kMaxGroup][kMaxHd];
-  __shared__ float red[32];
-  __shared__ float part_acc[4][kMaxGroup][kMaxHd / 2 + 1];  // 4 = kThreads / min hd
+  constexpr int LPR = HD / kDims, PG = GM <= 4 ? 4 : 8;
+  __shared__ int cols[kMaxW];
+  __shared__ int n_tail;
+  // q and the tiles' probabilities while the warps attend, then the warps'
+  // partial accumulators.
+  __shared__ union {
+    struct {
+      alignas(16) float q[GM][HD];
+      alignas(16) float p[kWarps][32][PG];
+    } a;
+    alignas(16) float acc[kWarps][GM][HD];
+  } sm;
+  __shared__ float part_m[kWarps][GM], part_l[kWarps][GM];
+  __shared__ float blk_m[GM], blk_l[GM];
+  __shared__ float blk_acc[GM][HD];
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, splits = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, sub = lane % LPR;
   const int G = H / n_kv;
-  const int stride = lim + W;
-  const float scale = rsqrtf((float)hd);
-  const int p_b = pos[b], f_b = flushed[b];
+  const int p_b = __ldg(pos + b), f_b = __ldg(flushed + b);
   const int n_h = max(0, min(f_b, lim));
 
-  for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
-    int g = i / hd, d = i % hd;
-    qs[g][d] = to_f(q[((long long)b * H + h * G + g) * hd + d]);
+  // The valid tail columns, in column order.
+  if (warp == 0) {
+    const int* tp = tail_pos + (long long)b * W;
+    int cnt = 0;
+    for (int c0 = 0; c0 < W; c0 += 128) {
+      int t[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = c0 + 32 * k + lane;
+        t[k] = c < W ? __ldg(tp + c) : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool ok = t[k] >= 0 && t[k] >= f_b && t[k] <= p_b;
+        const unsigned mask = __ballot_sync(0xffffffffu, ok);
+        if (ok) cols[cnt + __popc(mask & ((1u << lane) - 1u))] = c0 + 32 * k + lane;
+        cnt += __popc(mask);
+      }
+    }
+    if (lane == 0) n_tail = cnt;
+  }
+
+  // q in log2 units: scaled by hd^-0.5 and log2(e), so exp2 gives the softmax.
+  const float qscale = 1.4426950408889634f / sqrtf((float)HD);
+  const T* qb = q + ((long long)b * H + h * G) * HD;
+  for (int i = threadIdx.x; i < G * HD; i += kThreads) sm.a.q[i / HD][i % HD] = to_f(qb[i]) * qscale;
+  float m[GM], l[GM], acc[GM][kDims];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kDims; ++j) acc[g][j] = 0.f;
   }
   __syncthreads();
 
-  const HT* kh = k_hist + b * hsb + h * hsh;
-  const HT* vh = v_hist + b * hsb + h * hsh;
-  const float* ksc = KV8 ? k_scale + b * ssb + h * ssh : nullptr;
-  const float* vsc = KV8 ? v_scale + b * ssb + h * ssh : nullptr;
-  const T* kt = k_tail + ((long long)b * n_kv + h) * W * hd;
-  const T* vt = v_tail + ((long long)b * n_kv + h) * W * hd;
-  const int* tp = tail_pos + (long long)b * W;
+  // This warp's chunk [i0, i1) of the n valid positions: history rows first,
+  // then the compacted tail.
+  const int n = n_h + n_tail, nw = splits * kWarps, wg = split * kWarps + warp;
+  const int i0 = (int)((long long)wg * n / nw), i1 = (int)((long long)(wg + 1) * n / nw);
+  const long long hoff = b * hsb + h * hsh, soff = b * ssb + h * ssh;
+  float* pw = &sm.a.p[warp][0][0];
+  attend<HT, KV8, false, HD, GM>(k_hist + hoff, v_hist + hoff, KV8 ? k_scale + soff : nullptr,
+                                 KV8 ? v_scale + soff : nullptr, nullptr, i0, min(i1, n_h), G,
+                                 &sm.a.q[0][0], pw, m, l, acc);
+  const long long toff = ((long long)b * n_kv + h) * W * HD;
+  attend<T, false, true, HD, GM>(k_tail + toff, v_tail + toff, nullptr, nullptr, cols,
+                                 max(i0, n_h) - n_h, i1 - n_h, G, &sm.a.q[0][0], pw, m, l, acc);
 
-  // Pass 1: logits.
-  for (int s = threadIdx.x; s < n_h + W; s += blockDim.x) {
-    if (s < n_h) {
-      const HT* row = kh + (long long)s * hd;
-      for (int g = 0; g < G; ++g) {
-        float l = dot_row(row, qs[g], hd) * scale;
-        if (KV8) l *= ksc[s];
-        lg[g * stride + s] = l;
-      }
+  // The warp's partial (fixed shuffle trees): l over all lanes (one row
+  // each), acc over the row groups.
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) break;
+    l[g] = warp_sum(l[g]);
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+      for (int j = 0; j < kDims; ++j) acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], o);
+  }
+  __syncthreads();  // every warp is done with q and p
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) break;
+    if (lane < LPR) {
+      float4* dst = reinterpret_cast<float4*>(&sm.acc[warp][g][sub * kDims]);
+      dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    }
+    if (lane == 0) {
+      part_m[warp][g] = m[g];
+      part_l[warp][g] = l[g];
+    }
+  }
+  __syncthreads();
+
+  // The block's partial: the warps in order.
+  for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
+    const int g = idx / HD, d = idx % HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, part_m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float s = part_m[w][g] == -INFINITY ? 0.f : exp2f(part_m[w][g] - M);
+      L = fmaf(part_l[w][g], s, L);
+      A = fmaf(sm.acc[w][g][d], s, A);
+    }
+    if (splits == 1) {
+      out[((long long)b * H + h * G + g) * HD + d] = from_f<T>(A / L);
     } else {
-      const int w = s - n_h;
-      const int t = tp[w];
-      const bool ok = t >= 0 && t >= f_b && t <= p_b;
-      const T* row = kt + (long long)w * hd;
-      for (int g = 0; g < G; ++g)
-        lg[g * stride + s] = ok ? dot_row(row, qs[g], hd) * scale : -INFINITY;
-    }
-  }
-  __syncthreads();
-
-  // Softmax per head (f32).
-  for (int g = 0; g < G; ++g) {
-    float m = -INFINITY;
-    for (int s = threadIdx.x; s < n_h + W; s += blockDim.x) m = fmaxf(m, lg[g * stride + s]);
-    m = block_max(m, red);
-    float sum = 0.f;
-    for (int s = threadIdx.x; s < n_h + W; s += blockDim.x) {
-      float e = lg[g * stride + s] == -INFINITY ? 0.f : expf(lg[g * stride + s] - m);
-      lg[g * stride + s] = e;
-      sum += e;
-    }
-    sum = block_sum(sum, red);
-    for (int s = threadIdx.x; s < n_h + W; s += blockDim.x) {
-      float p = lg[g * stride + s] / sum;
-      if (KV8 && s < n_h) p *= vsc[s];
-      lg[g * stride + s] = p;
-    }
-    __syncthreads();
-  }
-
-  // Pass 2: out[g][d] = sum_s p[g][s] * v[s][d].
-  const int nparts = blockDim.x / hd;  // hd divides blockDim (checked on the host)
-  const int d = threadIdx.x % hd, part = threadIdx.x / hd;
-  float acc[kMaxGroup];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
-  if (part < nparts) {
-    for (int s = part; s < n_h + W; s += nparts) {
-      float v;
-      if (s < n_h) {
-        v = to_f(vh[(long long)s * hd + d]);
-      } else {
-        v = to_f(vt[(long long)(s - n_h) * hd + d]);
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < G) acc[g] += lg[g * stride + s] * v;
-    }
-  }
-  // Combine the parts: two halves of hd at a time to bound shared memory.
-  for (int half = 0; half < hd; half += kMaxHd / 2) {
-    const bool mine = part < nparts && d >= half && d < half + kMaxHd / 2;
-    if (mine && part > 0)
-      for (int g = 0; g < G; ++g) part_acc[part][g][d - half] = acc[g];
-    __syncthreads();
-    if (mine && part == 0) {
-      for (int g = 0; g < G; ++g) {
-        float a = acc[g];
-        for (int pp = 1; pp < nparts; ++pp) a += part_acc[pp][g][d - half];
-        out[((long long)b * H + h * G + g) * hd + d] = from_f<T>(a);
+      blk_acc[g][d] = A;
+      if (d == 0) {
+        blk_m[g] = M;
+        blk_l[g] = L;
       }
     }
-    __syncthreads();
   }
+  if (splits == 1) return;
+
+  // The cluster's blocks in rank order, through distributed shared memory;
+  // block r writes the outputs r, r + splits, ... (in units of the block).
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  for (int idx = rank * kThreads + threadIdx.x; idx < G * HD; idx += splits * kThreads) {
+    const int g = idx / HD, d = idx % HD;
+    float M = -INFINITY;
+    for (int r = 0; r < splits; ++r) M = fmaxf(M, *cluster.map_shared_rank(&blk_m[g], r));
+    float L = 0.f, A = 0.f;
+    for (int r = 0; r < splits; ++r) {
+      const float mr = *cluster.map_shared_rank(&blk_m[g], r);
+      const float s = mr == -INFINITY ? 0.f : exp2f(mr - M);
+      L = fmaf(*cluster.map_shared_rank(&blk_l[g], r), s, L);
+      A = fmaf(*cluster.map_shared_rank(&blk_acc[g][d], r), s, A);
+    }
+    out[((long long)b * H + h * G + g) * HD + d] = from_f<T>(A / L);
+  }
+  cluster.sync();  // no block leaves while another still reads its partial
 }
 
-template <typename T, typename HT, bool KV8>
-int launch(const void* q, const void* kh, const void* vh, const float* ks, const float* vs,
-           long long hsb, long long hsh, long long ssb, long long ssh, const void* kt,
-           const void* vt, const int* pos, const int* flushed, const int* tail_pos, void* out,
-           int B, int H, int n_kv, int hd, int lim, int W, cudaStream_t stream) {
-  const int G = H / n_kv;
-  const size_t smem = (size_t)G * (lim + W) * sizeof(float);
-  auto kern = decode_attn_kernel<T, HT, KV8>;
-  if (smem + 16 * 1024 > 48 * 1024) {  // static shared memory is ~12.5 KB
-    cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(n_kv, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const HT*)kh, (const HT*)vh, ks, vs, hsb, hsh, ssb, ssh, (const T*)kt,
-      (const T*)vt, pos, flushed, tail_pos, (T*)out, H, n_kv, hd, lim, W);
-  return (int)cudaGetLastError();
+struct Call {
+  const void *q, *k_hist, *v_hist;
+  const float *k_scale, *v_scale;
+  long long hsb, hsh, ssb, ssh;
+  const void *k_tail, *v_tail;
+  const int *pos, *flushed, *tail_pos;
+  void* out;
+  int B, H, n_kv, hd, lim, W;
+  cudaStream_t stream;
+};
+
+// Blocks per (row, kv head): doubled while the grid stays within one wave
+// of resident blocks and every warp keeps at least kMinRows of lim + W.
+int choose_splits(int pairs, int rows, int resident) {
+  int s = 1;
+  while (s < kMaxSplits && 2LL * pairs * s <= resident && rows >= 2 * s * kWarps * kMinRows)
+    s *= 2;
+  return s;
+}
+
+// With c == nullptr: query the variant's occupancy into *occ (setup).
+template <typename T, typename HT, bool KV8, int HD, int GM>
+int launch(const Call* c, int* occ) {
+  const auto kern = decode_attn_kernel<T, HT, KV8, HD, GM>;
+  if (c == nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, kThreads, 0);
+  const int splits = choose_splits(c->B * c->n_kv, c->lim + c->W, g_sms * *occ);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, c->n_kv, c->B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = c->stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;  // an unsplit call is a plain launch
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const T*)c->q, (const HT*)c->k_hist, (const HT*)c->v_hist, c->k_scale,
+      c->v_scale, c->hsb, c->hsh, c->ssb, c->ssh, (const T*)c->k_tail, (const T*)c->v_tail, c->pos,
+      c->flushed, c->tail_pos, (T*)c->out, c->H, c->n_kv, c->lim, c->W);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <typename T, typename HT, bool KV8, int DT, int HI>
+int by_shape(const Call* c, int hd, int G) {
+  int(&occ)[2][2] = g_occ[DT][HI];
+  if (hd == 64)
+    return G <= 3 ? launch<T, HT, KV8, 64, 3>(c, &occ[0][0]) : launch<T, HT, KV8, 64, 8>(c, &occ[0][1]);
+  return G <= 3 ? launch<T, HT, KV8, 128, 3>(c, &occ[1][0]) : launch<T, HT, KV8, 128, 8>(c, &occ[1][1]);
+}
+
+int dispatch(const Call* c, int dtype, int hist, int hd, int G) {
+  if (dtype == 1 && hist == 1) return by_shape<__nv_bfloat16, int8_t, true, 1, 1>(c, hd, G);
+  if (dtype == 1 && hist == 0) return by_shape<__nv_bfloat16, __nv_bfloat16, false, 1, 0>(c, hd, G);
+  if (dtype == 0 && hist == 1) return by_shape<float, int8_t, true, 0, 1>(c, hd, G);
+  if (dtype == 0 && hist == 0) return by_shape<float, float, false, 0, 0>(c, hd, G);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+// The SM count and every variant's resident blocks per SM, queried once when
+// the library is loaded; the split of each call is chosen from them.
+extern "C" int smoltts_decode_attention_setup() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  for (int v = 0; v < 16; ++v) {  // (dtype, hist, hd, group) by bits
+    const int r = dispatch(nullptr, v & 1, (v >> 1) & 1, v & 4 ? 128 : 64, v & 8 ? 8 : 3);
+    if (r != 0) return r;
+  }
+  return 0;
+}
 
 // dtype: 0 = f32, 1 = bf16 (q, tail, out). hist: 0 = same as dtype, 1 = int8
 // with f32 scales.
@@ -189,17 +484,12 @@ extern "C" int smoltts_decode_attention(const void* q, const void* k_hist, const
                                         void* out, int B, int H, int n_kv, int hd, int lim,
                                         int W, int dtype, int hist, cudaStream_t stream) {
   (void)cudaGetLastError();
-  if (H % n_kv != 0 || H / n_kv > kMaxGroup || hd > kMaxHd || kThreads % hd != 0 ||
-      kThreads / hd > 4 || hd % 16 != 0)
+  if (n_kv <= 0 || H % n_kv != 0 || H / n_kv < 1 || H / n_kv > kMaxGroup ||
+      (hd != 64 && hd != 128) || W < 0 || W > kMaxW || lim < 0)
     return (int)cudaErrorInvalidValue;
+  if (g_sms == 0) return (int)cudaErrorInitializationError;  // setup not run
   if (B == 0) return 0;
-#define SMOLTTS_ATTN_ARGS                                                                   \
-  q, k_hist, v_hist, k_scale, v_scale, hsb, hsh, ssb, ssh, k_tail, v_tail, pos, flushed, \
-      tail_pos, out, B, H, n_kv, hd, lim, W, stream
-  if (dtype == 1 && hist == 1) return launch<__nv_bfloat16, int8_t, true>(SMOLTTS_ATTN_ARGS);
-  if (dtype == 1 && hist == 0) return launch<__nv_bfloat16, __nv_bfloat16, false>(SMOLTTS_ATTN_ARGS);
-  if (dtype == 0 && hist == 1) return launch<float, int8_t, true>(SMOLTTS_ATTN_ARGS);
-  if (dtype == 0 && hist == 0) return launch<float, float, false>(SMOLTTS_ATTN_ARGS);
-#undef SMOLTTS_ATTN_ARGS
-  return (int)cudaErrorInvalidValue;
+  const Call c{q,   k_hist,  v_hist,   k_scale, v_scale, hsb, hsh, ssb, ssh, k_tail, v_tail,
+               pos, flushed, tail_pos, out,     B,       H,   n_kv, hd, lim, W,    stream};
+  return dispatch(&c, dtype, hist, hd, H / n_kv);
 }

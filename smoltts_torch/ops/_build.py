@@ -103,6 +103,7 @@ def lib(verbose: bool = False) -> ctypes.CDLL:
             handle = ctypes.CDLL(str(build(verbose)))
             _declare(handle)
             check(handle.smoltts_fast_loop_setup(), "fast_loop setup")
+            check(handle.smoltts_decode_attention_setup(), "decode_attention setup")
             _lib = handle
     return _lib
 
@@ -126,6 +127,8 @@ def _declare(h: ctypes.CDLL) -> None:
         I, I,  # dtype code (0 f32, 1 bf16), hist code (0 same, 1 int8)
         P,  # stream
     ]
+    h.smoltts_decode_attention_setup.restype = I  # SM count and occupancy, once
+    h.smoltts_decode_attention_setup.argtypes = []
     h.smoltts_sample_categorical.restype = I
     h.smoltts_sample_categorical.argtypes = [
         P, I, I, I,  # logits, B, V, row stride

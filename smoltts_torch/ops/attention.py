@@ -108,13 +108,16 @@ def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, 
         _require(t.dtype == q.dtype and t.is_contiguous() and t.device == dev,
                  f"{name} must be contiguous {q.dtype} on {dev}")
         _require(t.shape == (B, n_kv, W, hd), f"{name} shape {tuple(t.shape)}")
+        _require(t.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
+    _require(W <= 1024, f"tail length {W} above 1024")
     for name, t, shape in (("pos", pos, (B,)), ("flushed", flushed, (B,)),
                            ("tail_pos", tail_pos, (B, W))):
         _require(t.dtype == torch.int32 and t.is_contiguous() and t.device == dev
                  and tuple(t.shape) == shape, f"{name} must be contiguous int32 {shape} on {dev}")
     _require(tuple(k_hist.shape) == tuple(v_hist.shape) == (B, n_kv, lim, hd),
              f"history shape {tuple(k_hist.shape)}")
-    _require(q.is_contiguous() and H % n_kv == 0 and H // n_kv <= 8, "q layout / group size")
+    _require(q.is_contiguous() and q.data_ptr() % 16 == 0 and H % n_kv == 0 and H // n_kv <= 8,
+             "q layout / group size")
     _require(hd % 16 == 0 and hd in (64, 128), f"head_dim {hd}")
     ssb = ssh = 0
     if kv8:

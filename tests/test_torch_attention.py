@@ -1,7 +1,16 @@
 """PyTorch port, decode attention: the plain versions (which the CPU
 dispatch takes) against the JAX package's XLA reference and its Pallas
-kernel in interpret mode, with bf16/f32 and kv8 histories. Tolerance
+kernel in interpret mode, with bf16/f32 and kv8 histories; a plain-torch
+emulation of the CUDA kernel's method (chunked online softmax, fixed-order
+combine) against the JAX reference; and the kernel's host side that runs
+without a card (ctypes declarations, refused shapes). Tolerance
 rtol = atol = 1e-5 in f32 (summation order is the only difference)."""
+
+import ctypes
+import math
+import re
+import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +25,8 @@ from smoltts_tpu.ops.attention import (
 )
 from smoltts_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from smoltts_torch.interop import params_from_jax_numpy
+from smoltts_torch.ops import _build
+from smoltts_torch.ops import attention as A
 from smoltts_torch.ops.attention import (
     decode_attention,
     decode_attention_plain,
@@ -136,3 +147,170 @@ def test_tailed_history_view_matches_contiguous():
     for key in ("k_hist", "v_hist", "k_scale", "v_scale"):
         jsl[key] = jargs[key][:, :, :lim]
     np.testing.assert_allclose(a, np.asarray(jax_tailed(**jsl)), **TOL)
+
+
+# ---- the method of the CUDA kernel (csrc/decode_attention.cu), emulated ----
+# The kernel cannot run on the CPU. Its method is held here against the JAX
+# reference: the valid positions of each (row, kv head) (history rows, then
+# the tail columns that pass the mask in column order) are cut into
+# `splits * WARPS` equal contiguous chunks; each chunk runs an online softmax
+# over tiles of `tile` rows; the chunks' (max, sum, acc) meet in a fixed
+# order, the 8 warps of a block first, then the blocks of a cluster.
+
+WARPS = 8
+
+
+def _online_chunk(qg, keys, vals, ks, vs, scale, tile):
+    G, hd = qg.shape
+    m = torch.full((G,), -math.inf)
+    l = torch.zeros(G)
+    acc = torch.zeros(G, hd)
+    for t0 in range(0, keys.shape[0], tile):
+        sl = slice(t0, t0 + tile)
+        lg = (qg @ keys[sl].T) * scale * ks[sl]  # [G, t]
+        mn = torch.maximum(m, lg.max(1).values)
+        alpha = torch.where(mn == -math.inf, torch.ones(G), torch.exp(m - mn))
+        p = torch.exp(lg - mn[:, None])
+        l = l * alpha + p.sum(1)
+        acc = acc * alpha[:, None] + (p * vs[sl]) @ vals[sl]
+        m = mn
+    return m, l, acc
+
+
+def _combine(parts):
+    M = torch.stack([p[0] for p in parts]).max(0).values
+    L, A = torch.zeros_like(parts[0][1]), torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:  # fixed order
+        s = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp(m - M))
+        L = L + l * s
+        A = A + acc * s[:, None]
+    return M, L, A
+
+
+def _kernel_method(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale=None,
+                   v_scale=None, *, tile, splits):
+    B, H, hd = q.shape
+    n_kv, lim = k_hist.shape[1], k_hist.shape[2]
+    G = H // n_kv
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        f, p = int(flushed[b]), int(pos[b])
+        n_h = max(0, min(f, lim))
+        cols = [c for c in range(tail_pos.shape[1]) if 0 <= f <= int(tail_pos[b, c]) <= p]
+        for h in range(n_kv):
+            keys = torch.cat([k_hist[b, h, :n_h].float(), k_tail[b, h, cols].float()])
+            vals = torch.cat([v_hist[b, h, :n_h].float(), v_tail[b, h, cols].float()])
+            ones = torch.ones(len(cols))
+            ks = torch.cat([k_scale[b, h, :n_h] if k_scale is not None else torch.ones(n_h), ones])
+            vs = torch.cat([v_scale[b, h, :n_h] if v_scale is not None else torch.ones(n_h), ones])
+            qg = q[b, h * G:(h + 1) * G].float()
+            n, nw = keys.shape[0], splits * WARPS
+            chunks = []
+            for w in range(nw):
+                sl = slice(w * n // nw, (w + 1) * n // nw)
+                chunks.append(_online_chunk(qg, keys[sl], vals[sl], ks[sl], vs[sl], hd**-0.5, tile))
+            blocks = [_combine(chunks[s * WARPS:(s + 1) * WARPS]) for s in range(splits)]
+            _, L, A = _combine(blocks)
+            out[b, h * G:(h + 1) * G] = A / L[:, None]
+    return out.reshape(B, H * hd)
+
+
+def _edge_case(seed, kv8, H=8, n_kv=2, hd=64):
+    """Rows: one valid position (flushed = pos = 0); a full history with an
+    empty tail; flushed past the history (clipped); a stale tail column."""
+    rng = np.random.default_rng(seed)
+    B, Sh, W = 4, 40, 16
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    kh, vh = (rng.standard_normal((B, n_kv, Sh, hd)).astype(np.float32) for _ in "kv")
+    kt, vt = (rng.standard_normal((B, n_kv, W, hd)).astype(np.float32) for _ in "kv")
+    flushed = np.asarray([0, Sh, Sh + 2, 10], np.int32)
+    pos = np.asarray([0, Sh - 1, Sh + 5, 17], np.int32)
+    tail_pos = np.full((B, W), -1, np.int32)
+    for b in range(B):
+        cols = rng.permutation(W)[: max(0, pos[b] - flushed[b] + 1)]
+        tail_pos[b, cols] = np.arange(flushed[b], pos[b] + 1)
+    tail_pos[1, 3] = Sh - 2  # stale: below flushed
+    tail_pos[3, np.flatnonzero(tail_pos[3] < 0)[0]] = 4  # stale
+    jargs = dict(q=jnp.asarray(q), k_tail=jnp.asarray(kt), v_tail=jnp.asarray(vt),
+                 pos=jnp.asarray(pos), flushed=jnp.asarray(flushed), tail_pos=jnp.asarray(tail_pos))
+    if kv8:
+        kq, ks = jax_quantize_kv(jnp.asarray(kh))
+        vq, vs = jax_quantize_kv(jnp.asarray(vh))
+        jargs.update(k_hist=kq, v_hist=vq, k_scale=ks, v_scale=vs)
+    else:
+        jargs.update(k_hist=jnp.asarray(kh), v_hist=jnp.asarray(vh))
+    return jargs, {k: _t(v) for k, v in jargs.items()}
+
+
+_CASES = {
+    "tailed": lambda kv8: _tailed_case(3, kv8),
+    "edges": lambda kv8: _edge_case(8, kv8),
+    "hd128_g8": lambda kv8: _edge_case(9, kv8, H=16, n_kv=2, hd=128),
+}
+
+
+@pytest.mark.parametrize("tile,splits", [(1, 1), (16, 2), (64, 8)], ids=["tile1", "tile16", "tile64"])
+@pytest.mark.parametrize("case", sorted(_CASES))
+@pytest.mark.parametrize("kv8", [False, True], ids=["f32_history", "kv8_history"])
+def test_kernel_method_matches_jax(kv8, case, tile, splits):
+    """The chunked online softmax and its fixed-order combine equal the JAX
+    tailed attention to 1e-5 in f32 (summation order is the only
+    difference), whatever the tile and the number of chunks."""
+    jargs, targs = _CASES[case](kv8)
+    ref = np.asarray(jax_tailed(**jargs))
+    got = _kernel_method(**targs, tile=tile, splits=splits).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def _c_functions(source: str):
+    """{name: [ctypes type per parameter]} of the `extern "C" int name(...)`
+    functions of a C source: pointers and cudaStream_t map to c_void_p."""
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source):
+        argtypes = []
+        for decl in filter(None, (d.strip() for d in params.split(","))):
+            ctype = re.match(r"(.*?)\w+$", decl, re.S).group(1)
+            if "*" in ctype or "cudaStream_t" in ctype:
+                argtypes.append(ctypes.c_void_p)
+            else:
+                argtypes.append({"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                                 "float": ctypes.c_float}[ctype.strip()])
+        out[name] = argtypes
+    return out
+
+
+def test_declared_argtypes_mirror_c():
+    """A mismatch between the ctypes declaration and the C signature is silent
+    on the card (arguments are passed at the wrong width)."""
+    src = (Path(__file__).resolve().parents[1] / "smoltts_torch" / "csrc"
+           / "decode_attention.cu").read_text()
+    want = _c_functions(src)
+    assert set(want) == {"smoltts_decode_attention", "smoltts_decode_attention_setup"}
+
+    class Handle(dict):
+        def __getattr__(self, name):
+            return self.setdefault(name, types.SimpleNamespace())
+
+    h = Handle()
+    _build._declare(h)
+    for name, argtypes in want.items():
+        assert h[name].argtypes == argtypes, name
+        assert h[name].restype is ctypes.c_int
+    assert len(want["smoltts_decode_attention"]) == 24
+
+
+@pytest.mark.parametrize("H,n_kv,hd,W,match", [
+    (12, 4, 72, 8, "head_dim 72"),
+    (18, 2, 64, 8, "group size"),
+    (12, 4, 64, 1040, "tail length"),
+], ids=["hd72", "group9", "tail1040"])
+def test_kernel_wrapper_refuses_what_the_kernel_cannot_take(H, n_kv, hd, W, match):
+    """Checked before anything is built or launched."""
+    B, lim = 2, 16
+    q = torch.zeros(B, H, hd)
+    kh = torch.zeros(B, n_kv, lim, hd)
+    kt = torch.zeros(B, n_kv, W, hd)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        A._kernel(q, kh, kh, kt, kt, i32(B), i32(B), i32(B, W), None, None)
