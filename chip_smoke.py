@@ -18,11 +18,18 @@ Phases:
      B=64; identical codes
      from two calls with one seed; device time, device kernels and wall time
      per frame; the frame's products as cuBLAS bf16 matmuls (yardstick)
-  4  sampler (K3) vs its plain version
+  4  the slow-token site (K3), f32 and bf16 logits: exact cases (min-p 1,
+     one-hot, greedy with ties, finished rows, the audio window over 131k
+     draws), TV gates, ids call for call against the kernel's emulation
+     (Philox noise in plain PyTorch) at the main shape, ragged V, unaligned
+     rows and long rows; K3's own device time by name and the site's device
+     and wall time at B=1 and 64, beside a one-element kernel (the floor),
+     the plain site, torch.multinomial and the bound
   5  the main path as bench.py runs it: 150M int8 weights, kv8, B=64
      ChatML prompts, S=1024, attend bucket 256, temp 0.7 / 0.7 / min-p 0.05,
      prefill + 63 stream steps with flushes; launch counts per kernel
-  6  greedy end to end at B=4 in f32: kernel path == all-plain path
+  6  greedy end to end at B=4 in f32: kernel path (K3 once per frame) ==
+     all-plain path
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -48,13 +55,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 K2_GATE = 1e-2  # bf16 kernel vs the plain version's f32 math on the same inputs
 K2_F32_GATE = 1e-5  # f32 kernel vs the plain version: summation order only
 K2_COLD = 10  # layer-sized caches K2's cold timing rotates over (the main path's 10 layers)
 K1_BF16_LEVEL0_GATE = 0.9  # see phase 3
+K3_NEAR_TIE = 1e-5  # kernel vs emulation: a differing id's noisy score, relative (phase 4)
+K3_MS_GATE = 0.005  # K3's own device ms per call at B=64, V=2368, bf16, sampled
 REPEATS = 3  # measured passes of the main path (phase 5)
 K1_KERNELS = re.compile(r"\b(gemm_i8|fast_attn|fast_sample|init_h)\b")  # csrc/fast_loop.cu
-PORT_KERNELS = re.compile(r"\b(decode_attn_kernel|sample_kernel)\b")  # K2, K3
+K3_KERNEL = re.compile(r"\bsample_tokens_kernel\b")  # csrc/sampling.cu
+PORT_KERNELS = re.compile(r"\b(decode_attn_kernel|sample_tokens_kernel)\b")  # K2, K3
 
 
 def log(msg: str) -> None:
@@ -105,13 +116,29 @@ def device_ms(fn, iters=20, warmup=3) -> float:
 def device_profile(fn, iters=20, warmup=3):
     """(device ms per call, device kernels per call, {kernel name: count per
     call}) from one profiler window."""
-    prof = _profile(fn, iters, warmup)
-    events = prof.key_averages()
-    total = sum(_self_device_ms(e) for e in events)
-    kernels = {e.key: e.count / iters for e in events if _on_device(e)}
+    rows = _kernel_rows(fn, iters, warmup)
+    total = sum(_self_device_ms(e) for e in rows)
+    kernels = {e.key: e.count / iters for e in rows}
     if total <= 0:
         return time_ms(fn, iters, warmup=0), None, {}
     return total / iters, sum(kernels.values()), kernels
+
+
+def device_by_name(fn, pattern, iters=100, warmup=5):
+    """(device ms per call of the kernels whose names match `pattern`,
+    device ms per call of all kernels, device kernels per call) from one
+    profiler window."""
+    rows = _kernel_rows(fn, iters, warmup)
+    own = sum(_self_device_ms(e) for e in rows if pattern.search(e.key)) / iters
+    check(own > 0, f"no device time for {pattern.pattern} in the profiler window")
+    return own, sum(_self_device_ms(e) for e in rows) / iters, sum(e.count for e in rows) / iters
+
+
+def _kernel_rows(fn, iters, warmup):
+    """The profiler window's rows of device kernels. Only these count: the
+    row of the PyTorch op that launched a kernel repeats that kernel's time
+    (summing every row counted such kernels twice)."""
+    return [e for e in _profile(fn, iters, warmup).key_averages() if _on_device(e)]
 
 
 def _profile(fn, iters, warmup):
@@ -170,8 +197,8 @@ def _on_device(event) -> bool:
     return getattr(event, "device_type", None) is not None and "CUDA" in str(event.device_type)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -582,50 +609,184 @@ class Smoke:
         return device_ms(frame, iters=10)
 
     def phase4_sampler(self):
+        from smoltts_torch.config import smoltts_byte_150m
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.ops import sampling as SP
+        from smoltts_torch.tokenizer import TokenConfig
+
+        torch, dev = self.torch, self.dev
+        cfg = smoltts_byte_150m()
+        tok = TokenConfig.smoltts_v0(cfg.codebook_size)
+        B, V, T, min_p = 64, cfg.vocab_size, 0.7, 0.05
+        sampled = GenerationSettings(default_temp=T, min_p=min_p)
+        greedy = GenerationSettings(default_temp=0.0)
+        g = torch.Generator(device=dev).manual_seed(7)
+        randn = lambda b, v: torch.randn((b, v), generator=g, device=dev) * 2.0
+        base = randn(B, V)
+        none = torch.zeros(B, dtype=torch.bool, device=dev)
+        ids = torch.arange(V, device=dev)
+        allowed = (ids == tok.im_end_id) | ((ids >= tok.semantic_start_id) & (ids <= tok.semantic_end_id))
+        exact = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            logits = base.to(dtype)
+            x = logits.float()
+            gen = torch.Generator(device=dev).manual_seed(8)
+            # min_p = 1 keeps only the maxima of l / T (IEEE division): the id is one of them
+            s = x / torch.tensor(0.8, device=dev)
+            a = SP.sample_categorical(logits, gen, temperature=0.8, min_p=1.0).long()
+            bad_minp = int((s.gather(1, a[:, None])[:, 0] != s.amax(1)).sum())
+            hot = torch.full((B, V), -100.0, device=dev)
+            hot_idx = torch.randint(0, V, (B,), generator=g, device=dev)
+            hot[torch.arange(B, device=dev), hot_idx] = 100.0
+            bad_hot = int((SP.sample_categorical(hot.to(dtype), gen, temperature=1.0).long()
+                           != hot_idx).sum())
+            # greedy with built ties: torch.argmax takes the first maximum, so must the kernel
+            cols = torch.randint(0, V, (B, 3), generator=g, device=dev)
+            tied = x.scatter(1, cols, (x.amax(1, keepdim=True) + 1.0).expand(B, 3)).to(dtype)
+            want = torch.argmax(tied.float(), -1)
+            bad_greedy = int((SP.sample_categorical(tied, None, temperature=0.0).long() != want).sum())
+            bad_greedy += int((SP.sample_slow_token(tied, None, greedy, tok, none).long() != want).sum())
+            # finished rows give im_end and leave the other rows' draws alone
+            fin = torch.rand((B,), generator=g, device=dev) < 0.5
+            g1, g2 = (torch.Generator(device=dev).manual_seed(9) for _ in range(2))
+            with_fin = SP.sample_slow_token(logits, g1, sampled, tok, fin)
+            without = SP.sample_slow_token(logits, g2, sampled, tok, none)
+            bad_fin = int((with_fin[fin] != tok.im_end_id).sum()) + int((with_fin[~fin] != without[~fin]).sum())
+            log(f"[4 K3] {name} exact cases, mismatches: min_p=1 {bad_minp}, one-hot {bad_hot}, greedy "
+                f"with built ties vs torch.argmax {bad_greedy}, finished rows {bad_fin} "
+                f"({int(fin.sum())} finished)")
+            exact += bad_minp + bad_hot + bad_greedy + bad_fin
+            # distributions over N draws of one row: the main settings against the masked
+            # softmax; the audio window at T=1 without min-p (rows of stride 0) against the
+            # softmax over the window, with no id outside it
+            N, row = self.K3_DRAWS, logits[:1]
+            draws = SP.sample_slow_token(row.expand(N, -1).contiguous(), gen, sampled, tok,
+                                         torch.zeros(N, dtype=torch.bool, device=dev))
+            self._k3_tv(f"{name} T={T} min-p {min_p}", draws, masked_softmax(
+                row[0].double().cpu().numpy(), T, min_p), seed=9)
+            window = GenerationSettings(default_temp=1.0, audio_only_constraint=True)
+            draws = SP.sample_slow_token(row.expand(N, -1), gen, window, tok,
+                                         torch.zeros(N, dtype=torch.bool, device=dev))
+            outside = int((~allowed[draws.long()]).sum())
+            log(f"[4 K3] {name} audio window: {outside} of {N} ids outside "
+                f"{{{tok.im_end_id}}} U [{tok.semantic_start_id}, {tok.semantic_end_id}]")
+            exact += outside
+            lw = np.where(allowed.cpu().numpy(), row[0].double().cpu().numpy(), -np.inf)
+            self._k3_tv(f"{name} audio window T=1", draws, masked_softmax(lw, 1.0, 1e-300), seed=10)
+        check(exact == 0, f"K3 exact cases: {exact} mismatches")
+
+        # the kernel against its method in plain PyTorch (sample_slow_token_emulated: the
+        # same Philox noise), call for call; an id may differ only at a near tie
+        fin = torch.rand((B,), generator=g, device=dev) < 0.25
+        wide = randn(B, V + 1).bfloat16()
+        cases = [
+            ("main B=64 bf16", 100, lambda: randn(B, V).bfloat16(), sampled, fin),
+            ("B=64 f32", 20, lambda: randn(B, V), sampled, fin),
+            ("B=1 bf16", 20, lambda: randn(1, V).bfloat16(), sampled, none[:1]),
+            ("no min-p bf16", 20, lambda: randn(B, V).bfloat16(), GenerationSettings(default_temp=T), fin),
+            ("audio window bf16", 20, lambda: randn(B, V).bfloat16(),
+             GenerationSettings(default_temp=T, min_p=min_p, audio_only_constraint=True), fin),
+            ("ragged V=2365 bf16", 10, lambda: randn(B, 2365).bfloat16(), sampled, fin),
+            ("ragged V=2365 f32", 10, lambda: randn(B, 2365), sampled, fin),
+            ("unaligned rows bf16 (scalar path)", 10, lambda: wide.copy_(randn(B, V + 1))[:, 1:], sampled, fin),
+            ("V=50000 bf16 (chunked path)", 10, lambda: randn(B, 50000).bfloat16(), sampled, fin),
+            ("V=20000 f32 (chunked path)", 10, lambda: randn(B, 20000), sampled, fin),
+        ]
+        for i, (label, calls, make, settings, finished) in enumerate(cases):
+            rows, diff, worst = self._k3_vs_emulation(make, settings, tok, finished, calls, seed=20 + i)
+            log(f"[4 K3] kernel vs emulation, {label}: {diff} of {rows} ids differ over {calls} calls, "
+                f"largest relative gap of their noisy scores {worst:.3e} (near-tie gate {K3_NEAR_TIE})")
+            check(worst <= K3_NEAR_TIE, f"K3 vs emulation {label}: gap {worst}")
+
+        rec = self._k3_times(cfg, tok, sampled, greedy, randn)
+        self.record("sample_categorical", source="smoltts_torch/csrc/sampling.cu",
+                    replaces="smoltts_tpu/ops/sampling.py:36", max_abs_err=float(exact), **rec)
+
+    def _k3_tv(self, label, draws, p, seed):
+        N = draws.numel()
+        freq = np.bincount(draws.cpu().numpy(), minlength=p.size) / N
+        tv = 0.5 * np.abs(freq - p).sum()
+        gate = tv_gate(p, N, seed=seed)
+        outside = float(freq[p == 0].sum())
+        log(f"[4 K3] {label}: TV over {N} draws of one row {tv:.5f} (gate {gate:.5f} = 1.2 x the "
+            f"99.9th percentile of exact-sampling TV; {int((p > 0).sum())} tokens kept), mass "
+            f"outside them {outside:.2e}")
+        check(tv <= gate and outside == 0.0, f"K3 distribution off: {label}")
+
+    def _k3_vs_emulation(self, make, settings, tok, finished, calls, seed):
+        """(rows, ids that differ, largest relative gap between the f64 noisy
+        scores of the kernel's id and the emulation's) over `calls` calls;
+        three generators in lockstep give the kernel, the emulation and the
+        gap check the same seed pairs."""
         from smoltts_torch.ops import sampling as SP
 
         torch, dev = self.torch, self.dev
-        B, V, T, min_p = 64, 2368, 0.7, 0.05
-        g = torch.Generator(device=dev).manual_seed(7)
-        logits = torch.randn((B, V), generator=g, device=dev) * 2.0
-        gen = torch.Generator(device=dev).manual_seed(8)
-        a = SP.sample_categorical(logits, gen, temperature=0.8, min_p=1.0)
-        exact1 = int((a.long() != logits.argmax(-1)).sum().item())
-        hot = torch.full((B, V), -100.0, device=dev)
-        idx = torch.randint(0, V, (B,), generator=g, device=dev)
-        hot[torch.arange(B, device=dev), idx] = 100.0
-        exact2 = int((SP.sample_categorical(hot, gen, temperature=1.0).long() != idx).sum().item())
-        log(f"[4 K3] min_p=1 mismatches vs argmax: {exact1}; one-hot mismatches: {exact2}")
-        check(exact1 == 0 and exact2 == 0, "K3 exact cases")
+        gk, ge, gs = (torch.Generator(device=dev).manual_seed(seed) for _ in range(3))
+        rows = diff = 0
+        worst = 0.0
+        for _ in range(calls):
+            logits = make()
+            a = SP.sample_slow_token(logits, gk, settings, tok, finished).long()
+            b = SP.sample_slow_token_emulated(logits, ge, settings, tok, finished).long()
+            sd = SP.philox_seed(gs, dev)
+            rows += a.numel()
+            bad = (a != b).nonzero()[:, 0]
+            if bad.numel() == 0:
+                continue
+            diff += bad.numel()
+            noise = SP.philox_gumbel_plain(sd[0], sd[1], *logits.shape).double()
+            score = SP.slow_token_scores(logits, settings, tok).double() + noise
+            va, vb = score[bad, a[bad]], score[bad, b[bad]]
+            gap = (va - vb).abs() / torch.maximum(va.abs().maximum(vb.abs()), torch.ones_like(va))
+            worst = max(worst, float(gap.nan_to_num(math.inf).max()))
+        return rows, diff, worst
 
-        N = self.K3_DRAWS
-        row = logits[:1]
-        draws = SP.sample_categorical(row.expand(N, -1).contiguous(), gen, temperature=T, min_p=min_p)
-        p = masked_softmax(row[0].double().cpu().numpy(), T, min_p)
-        freq = np.bincount(draws.cpu().numpy(), minlength=V) / N
-        tv = 0.5 * np.abs(freq - p).sum()
-        gate = tv_gate(p, N, seed=9)
-        outside = float(freq[p == 0].sum())
-        log(f"[4 K3] TV over {N} draws of one row: {tv:.5f} (gate {gate:.5f} = 1.2 x the 99.9th "
-            f"percentile of exact-sampling TV; {int((p > 0).sum())} tokens kept), "
-            f"mass outside min-p {outside:.2e}")
-        check(tv <= gate and outside == 0.0, "K3 sampled distribution off")
-
-        kernel = lambda: SP.sample_categorical(logits, gen, temperature=T, min_p=min_p)
-        ms, wall_ms = device_ms(kernel, iters=100), time_ms(kernel, iters=100)
-        plain_ms = device_ms(lambda: SP.sample_categorical_plain(logits, gen, temperature=T, min_p=min_p),
-                             iters=50)
+    def _k3_times(self, cfg, tok, sampled, greedy, randn):
+        """K3's own device time per call (by kernel name) and the whole site's
+        (device: all its kernels; wall: CUDA events, host dispatch included),
+        at B = 1 and 64, f32 and bf16, beside a one-element kernel (the card's
+        floor), the plain site, torch.multinomial and the bound; the record of
+        the main path's shape (B=64, bf16, sampled)."""
         from smoltts_torch.lm.samplers import min_p_mask
+        from smoltts_torch.ops import sampling as SP
 
-        probs = torch.softmax(min_p_mask(logits / T, min_p), -1)
-        library_ms = device_ms(lambda: torch.multinomial(probs, 1, generator=gen), iters=100)
-        bms, by = bound(B * V * 4 + B * 4 + 16, 6 * B * V)
-        log(f"[4 K3] B=64 V=2368, device time per call: kernel {ms} ms, plain {plain_ms} ms, "
-            f"multinomial {library_ms} ms, bound {bms} ms ({by}); kernel wall per call with "
-            f"host dispatch {wall_ms} ms")
-        self.record("sample_categorical", source="smoltts_torch/csrc/sampling.cu",
-                    replaces="smoltts_tpu/ops/sampling.py:36", max_abs_err=float(exact1 + exact2),
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+        torch, dev = self.torch, self.dev
+        V, T, min_p = cfg.vocab_size, sampled.default_temp, sampled.min_p
+        one = torch.zeros(1, device=dev)
+        floor_ms = device_ms(lambda: one.add_(1.0), iters=100)
+        log(f"[4 K3] floor: a one-element elementwise kernel {floor_ms} ms device time per call")
+        rec = None
+        gen = torch.Generator(device=dev).manual_seed(30)
+        for B, dtype, settings in ((64, torch.bfloat16, sampled), (64, torch.float32, sampled),
+                                   (1, torch.bfloat16, sampled), (1, torch.float32, sampled),
+                                   (64, torch.bfloat16, greedy)):
+            logits = randn(B, V).to(dtype)
+            fin = torch.zeros(B, dtype=torch.bool, device=dev)
+            site = lambda: SP.sample_slow_token(logits, gen, settings, tok, fin)
+            own, total, per_call = device_by_name(site, K3_KERNEL)
+            wall = time_ms(site, iters=100)
+            kind = "greedy" if settings is greedy else f"T={T} min-p {min_p}"
+            log(f"[4 K3] B={B} V={V} {str(dtype)[6:]} {kind}, per call: K3 kernel {own} ms device; "
+                f"site {total} ms device over {per_call:g} device kernels, {wall} ms wall with host "
+                f"dispatch")
+            check(per_call <= (1 if settings is greedy else 2), f"K3 site launches {per_call} kernels")
+            if rec is not None:
+                continue
+            survivors = int((SP.slow_token_scores(logits, settings, tok) > -math.inf).sum())
+            esz = logits.element_size()
+            nbytes = B * V * esz + B + 16 + B * 4  # logits, finished, seed pair, ids
+            bms, by = bound(nbytes, 3 * B * V + 60 * survivors, F32_FLOPS)
+            plain_ms = device_ms(lambda: SP.sample_slow_token_plain(logits, gen, settings, tok, fin),
+                                 iters=50)
+            probs = torch.softmax(min_p_mask(logits.float() / T, min_p), -1)
+            library_ms = device_ms(lambda: torch.multinomial(probs, 1, generator=gen), iters=100)
+            log(f"[4 K3] B={B} bf16 main shape: bound {bms} ms ({by}: {nbytes} bytes read and "
+                f"written once, {survivors} survivors of min-p); plain site {plain_ms} ms, "
+                f"torch.multinomial {library_ms} ms; K3 {own / floor_ms:.2f}x the floor")
+            check(own <= K3_MS_GATE, f"K3 {own} ms above {K3_MS_GATE} ms")
+            rec = dict(ms=own, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+        return rec
 
     def _prompts(self, cfg, B, T):
         from smoltts_torch.lm.prompt import PromptEncoder
@@ -779,11 +940,13 @@ class Smoke:
             log(f"[5 main] profiler: not measured ({e!r})")
 
     def phase6_greedy_e2e(self):
+        from smoltts_torch import ops
         from smoltts_torch.codec.mimi import init_mimi_params
         from smoltts_torch.lm.samplers import GenerationSettings
         from smoltts_torch.models.dual_ar import init_params
         from smoltts_torch.ops import attention as A
         from smoltts_torch.ops import fast_loop as FL
+        from smoltts_torch.ops import sampling as SP
         from smoltts_torch.ops.quant import (
             fuse_decode_params, fuse_mimi_decode_params, quantize_decode_params,
             quantize_mimi_params,
@@ -797,20 +960,28 @@ class Smoke:
             init_mimi_params(mcfg, seed=0, dtype=torch.float32, device=dev)))
         token_cfg, prompt, lens = self._prompts(cfg, 4, 64)
         greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
+        n_frames = 16
         run = lambda: self._run_stream(cfg, params, mcfg, mimi, token_cfg, greedy, prompt, lens,
-                                       16, torch.float32, torch.float32)[2]
+                                       n_frames, torch.float32, torch.float32)[2]
+        ops.reset_launch_counts()
         kern = run()
+        k3 = ops.LAUNCHES["sample_categorical"]
         with mock.patch.object(A, "decode_attention_tailed", A.decode_attention_tailed_plain), \
                 mock.patch.object(A, "decode_attention", A.decode_attention_plain), \
-                mock.patch.object(FL, "fused_fast_micro_loop", FL.fast_micro_loop_plain):
+                mock.patch.object(FL, "fused_fast_micro_loop", FL.fast_micro_loop_plain), \
+                mock.patch.object(SP, "sample_slow_token", SP.sample_slow_token_plain):
             plain = run()
         codes_k = torch.stack([o.audio_codes for o in kern])
         codes_p = torch.stack([o.audio_codes for o in plain])
+        # the slow token shows in is_audio and finished (and feeds the next frame)
+        slow_k = torch.stack([torch.stack([o.is_audio, o.finished]) for o in kern])
+        slow_p = torch.stack([torch.stack([o.is_audio, o.finished]) for o in plain])
         pcm_err = max((a.pcm - b.pcm).abs().max().item() for a, b in zip(kern, plain))
-        equal = bool((codes_k == codes_p).all())
-        log(f"[6 greedy] B=4 f32 16 frames: codes equal {equal}, PCM max abs diff {pcm_err:.3e} "
-            f"(gate 1e-3)")
+        equal = bool((codes_k == codes_p).all()) and bool((slow_k == slow_p).all())
+        log(f"[6 greedy] B=4 f32 {n_frames} frames: codes, is_audio and finished equal {equal}, PCM max "
+            f"abs diff {pcm_err:.3e} (gate 1e-3); K3 launches in the kernel run {k3}")
         check(equal and pcm_err <= 1e-3, "kernel path and plain path differ")
+        check(k3 == n_frames, f"K3 launched {k3} times over {n_frames} greedy frames")
 
     def run(self, phases=None):
         table = [

@@ -8,9 +8,10 @@ the tail and, at flush, the history IN PLACE: the state passed to a step is
 consumed and the returned state shares its large buffers.
 
 Per frame, the slow trunk runs the decode-attention kernel in every layer
-(ops/attention.py), the slow token goes through the sampling kernel
-(ops/sampling.py) and the codebook levels through the fast-loop kernel
-(ops/fast_loop.py); on the CPU each takes its plain version.
+(ops/attention.py), the slow-token site (window, sampling, finished rows)
+is one launch of the sampling kernel (ops/sampling.py), and the codebook
+levels go through the fast-loop kernel (ops/fast_loop.py); on the CPU each
+takes its plain version.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from smoltts_torch import resolve_device
 from smoltts_torch.config import DualARConfig
-from smoltts_torch.lm.samplers import GenerationSettings, constrain_logits_to_audio
+from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.models.dual_ar import embed_merge, slow_dims, token_head
 from smoltts_torch.models.layers import AttnDims, apply_rope, rms_norm, rope_cos_sin, split_qkv
 from smoltts_torch.ops import attention as attn_ops
@@ -232,16 +233,9 @@ def _frame_from_hidden(params, cfg: DualARConfig, token_cfg: TokenConfig, hidden
                        token_logits, finished, generator, settings: GenerationSettings):
     """Sample the semantic token and the codebook levels; assemble the next
     frame."""
-    logits = token_logits.float()
     sem_end = token_cfg.semantic_end_id or token_cfg.semantic_start_id
-    if settings.audio_only_constraint:
-        logits = constrain_logits_to_audio(
-            logits, token_cfg.im_end_id, token_cfg.semantic_start_id, sem_end
-        )
-    slow_token = sampling_ops.sample_categorical(
-        logits, generator, temperature=settings.default_temp, min_p=settings.min_p
-    )
-    slow_token = torch.where(finished, torch.full_like(slow_token, token_cfg.im_end_id), slow_token)
+    slow_token = sampling_ops.sample_slow_token(token_logits, generator, settings, token_cfg,
+                                                finished)
     codes = _fast_micro_loop(params, cfg, hidden, generator, settings)
     frame = torch.cat([slow_token[:, None], codes], dim=1)
     is_semantic = (slow_token >= token_cfg.semantic_start_id) & (slow_token <= sem_end)

@@ -111,6 +111,15 @@ def lib(verbose: bool = False) -> ctypes.CDLL:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+SAMPLE_TOKENS_ARGTYPES = [
+    P, I, I, I, ctypes.c_longlong,  # logits, dtype code (0 f32, 1 bf16), B, V, row stride
+    F, F, I,  # temperature (<= 0 greedy), log(min_p), use min_p
+    I, I, I, I,  # use the audio window, semantic start, semantic end, im_end id
+    P,  # finished [B] bool (may be null)
+    P,  # philox seed/offset [2] int64 on the device (null when greedy)
+    P,  # out [B] int32
+    P,  # stream
+]
 
 
 def _declare(h: ctypes.CDLL) -> None:
@@ -129,14 +138,8 @@ def _declare(h: ctypes.CDLL) -> None:
     ]
     h.smoltts_decode_attention_setup.restype = I  # SM count and occupancy, once
     h.smoltts_decode_attention_setup.argtypes = []
-    h.smoltts_sample_categorical.restype = I
-    h.smoltts_sample_categorical.argtypes = [
-        P, I, I, I,  # logits, B, V, row stride
-        F, F, I,  # temperature, log(min_p), use min_p
-        P,  # philox seed/offset [2] int64 on the device
-        P,  # out [B] int32
-        P,  # stream
-    ]
+    h.smoltts_sample_tokens.restype = I
+    h.smoltts_sample_tokens.argtypes = SAMPLE_TOKENS_ARGTYPES
     h.smoltts_fast_loop.restype = I
     h.smoltts_fast_loop.argtypes = [P, P]  # &FastLoopArgs, stream
     h.smoltts_fast_loop_setup.restype = I  # dynamic shared memory of the GEMMs, once

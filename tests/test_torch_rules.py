@@ -55,7 +55,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                              ROOT / "scripts" / "torch_k1_products.py"],
+                                                              ROOT / "scripts" / "torch_k1_products.py",
+                                                              ROOT / "scripts" / "torch_k3_threads.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_static_scan_has_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "smoltts_tpu")]
