@@ -30,6 +30,14 @@ Phases:
      prefill + 63 stream steps with flushes; launch counts per kernel
   6  greedy end to end at B=4 in f32: kernel path (K3 once per frame) ==
      all-plain path
+  7  SmolTTS at 150M from a release-format checkpoint written in the run
+     (bf16 model.safetensors + config.json, tokenizer.json, a full-size
+     mimi.safetensors in the kyutai/HF key schema): loaded trees equal the
+     written ones; int8+kv8, sampled with the audio window: __call__, stream
+     and create_speaker with launch counts; greedy f32 int8: kernel path ==
+     all-plain path for generate_blocking, __call__ and stream; the chunk
+     step at B=64, chunk 8, bucket 256 beside phase 5's streaming rate, and
+     chunk-step codes == stream-step codes greedy at B=4 in f32
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -217,6 +225,80 @@ def masked_softmax(logits: np.ndarray, temp: float, min_p: float) -> np.ndarray:
     return p / p.sum()
 
 
+def trees_equal(a, b) -> bool:
+    """Two parameter trees hold the same leaves bit for bit (dtype and shape
+    included)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a.to(b.device) == b).all())
+
+
+# (leaf of a codec transformer layer) -> (HF key under `{prefix}.layers.{i}.`, transposed)
+HF_TRANSFORMER_KEYS = {
+    "ln1_w": ("input_layernorm.weight", False), "ln1_b": ("input_layernorm.bias", False),
+    "ln2_w": ("post_attention_layernorm.weight", False),
+    "ln2_b": ("post_attention_layernorm.bias", False),
+    "wq": ("self_attn.q_proj.weight", True), "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True), "wo": ("self_attn.o_proj.weight", True),
+    "fc1": ("mlp.fc1.weight", True), "fc2": ("mlp.fc2.weight", True),
+    "scale_attn": ("self_attn_layer_scale.scale", False),
+    "scale_mlp": ("mlp_layer_scale.scale", False),
+}
+
+
+def mimi_hf_state(params, cfg) -> dict:
+    """A Mimi tree as a kyutai/HF state dict: the inverse of
+    `smoltts_torch.codec.mimi.params_from_hf_state_dict`, with each codebook
+    stored as embed_sum = embed and cluster_usage = 1."""
+    import torch
+
+    from smoltts_torch.codec.seanet import build_decoder_plan, build_encoder_plan
+
+    st = {}
+
+    def conv(key, p):  # [K, I/groups, O] -> [O, I/groups, K]
+        st[key + ".weight"] = p["w"].permute(2, 1, 0)
+        if "b" in p:
+            st[key + ".bias"] = p["b"]
+
+    def convtr(key, p, depthwise):  # flipped [K, I/groups, O] -> [I, O/groups, K]
+        w = p["w"].permute(2, 1, 0) if depthwise else p["w"].permute(1, 2, 0)
+        st[key + ".weight"] = w.flip(-1)
+        if "b" in p:
+            st[key + ".bias"] = p["b"]
+
+    for side, plan in (("encoder", build_encoder_plan(cfg)), ("decoder", build_decoder_plan(cfg))):
+        for i, (spec, p) in enumerate(zip(plan, params[side])):
+            base = f"{side}.layers.{i}"
+            if spec.kind == "conv":
+                conv(base + ".conv", p)
+            elif spec.kind == "convtr":
+                convtr(base + ".conv", p, depthwise=False)
+            elif spec.kind == "resnet":
+                conv(base + ".block.1.conv", p["conv1"])
+                conv(base + ".block.3.conv", p["conv2"])
+    for name in ("encoder_transformer", "decoder_transformer"):
+        for leaf, (key, transpose) in HF_TRANSFORMER_KEYS.items():
+            stacked = params[name]["layers"][leaf]
+            for i in range(stacked.shape[0]):
+                st[f"{name}.layers.{i}.{key}"] = stacked[i].T if transpose else stacked[i]
+    conv("downsample.conv", params["downsample"])
+    convtr("upsample.conv", params["upsample"], depthwise=True)
+    for side in ("semantic", "acoustic"):
+        q, prefix = params["quantizer"][side], f"quantizer.{side}_residual_vector_quantizer"
+        st[prefix + ".input_proj.weight"] = q["in_proj"].T[:, :, None]
+        st[prefix + ".output_proj.weight"] = q["out_proj"].T[:, :, None]
+        for i, embed in enumerate(q["embed"]):
+            st[f"{prefix}.layers.{i}.codebook.embed_sum"] = embed
+            st[f"{prefix}.layers.{i}.codebook.cluster_usage"] = torch.ones(embed.shape[0])
+            st[f"{prefix}.layers.{i}.codebook.initialized"] = torch.ones(1)
+    return {k: v.contiguous() for k, v in st.items()}
+
+
 class Smoke:
     K1_DRAWS = 8192  # level-0 draws of one hidden row (phase 3)
     K3_DRAWS = 131072  # draws of one logits row (phase 4)
@@ -229,6 +311,7 @@ class Smoke:
         self.kernels = {}  # name -> record for the JSON line
         self.failures = []
         self._lm = None
+        self.stream_rate = None  # phase 5's median audio-s/s, shown beside phase 7's chunk step
 
     # ---- shared state -------------------------------------------------------
 
@@ -273,10 +356,11 @@ class Smoke:
         log(f"[1 build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
             f"(nvcc wall {_build.BUILD_SECONDS})")
 
-    def _k2_case(self, B, H, KV, hd, S, lim, W, kv8, dtype, seed, copies=1):
+    def _k2_case(self, B, H, KV, hd, S, lim, W, kv8, dtype, seed, copies=1, store=None):
         """Inputs of one tailed K2 call: the history as the decode step passes
-        it (a [:lim] view of an S-long cache), a bf16/f32 tail with permuted
-        columns and one stale column per row. With B >= 8 rows 0-2 are edge
+        it (a [:lim] view of an S-long cache), a tail in the storage dtype
+        (`store`, default the compute dtype) with permuted columns and one
+        stale column per row. With B >= 8 rows 0-2 are edge
         rows: tail only (flushed = 0), a full history with an empty tail
         (flushed = lim, pos = lim - 1), and flushed past lim (history clipped).
         Returns (kernel kwargs for each of `copies` caches, reference kwargs
@@ -307,14 +391,14 @@ class Smoke:
         args, ref = [], None
         for _ in range(copies):
             kf, vf = rnd(1, B, KV, S, hd), rnd(1, B, KV, S, hd)
-            kt, vt = rnd(B, KV, W, hd).to(dtype), rnd(B, KV, W, hd).to(dtype)
+            kt, vt = rnd(B, KV, W, hd).to(store or dtype), rnd(B, KV, W, hd).to(store or dtype)
             if kv8:
                 kq, ks = quantize_kv(kf)
                 vq, vs = quantize_kv(vf)
                 hist = dict(k_hist=view(kq), v_hist=view(vq), k_scale=view(ks), v_scale=view(vs))
                 hist32 = dict(hist)
             else:
-                hist = dict(k_hist=view(kf.to(dtype)), v_hist=view(vf.to(dtype)))
+                hist = dict(k_hist=view(kf.to(store or dtype)), v_hist=view(vf.to(store or dtype)))
                 hist32 = {k: v.float() for k, v in hist.items()}
             args.append(dict(q=q, k_tail=kt, v_tail=vt, **common, **hist))
             if ref is None:
@@ -373,14 +457,27 @@ class Smoke:
                    8, 2 * G, 2, hd, 256, 256, 128, kv8, dtype)
                   for dtype in (bf16, f32) for kv8 in (True, False) for hd in (64, 128)
                   for G in (2, 5)]
+        # f32 compute over a bf16 tail (and bf16 or int8 history): the bf16
+        # cache an f32 model keeps in the blocking generator. That kernel
+        # places the plain version's bf16 roundings, so it is held against the
+        # plain version on the same inputs, at the bf16 gate (a probability
+        # that rounds the other way moves an output by up to ~1e-3)
+        cases = [c + (None,) for c in cases] + [
+            (f"f32 over bf16 tail, {'kv8' if kv8 else 'bf16'} history B={B} hd {hd} G={H // KV}",
+             B, H, KV, hd, 2048, 2048, 128, kv8, f32, bf16)
+            for kv8 in (False, True) for B, H, KV, hd in ((1, 12, 4, 64), (7, 12, 3, 128))]
         worst = {bf16: 0.0, f32: 0.0}
-        for i, (label, B, H, KV, hd, S, lim, W, kv8, dtype) in enumerate(cases):
-            (args,), ref, _ = self._k2_case(B, H, KV, hd, S, lim, W, kv8, dtype, seed=20 + i)
+        for i, (label, B, H, KV, hd, S, lim, W, kv8, dtype, store) in enumerate(cases):
+            (args,), ref, _ = self._k2_case(B, H, KV, hd, S, lim, W, kv8, dtype, seed=20 + i,
+                                            store=store)
             got = A.decode_attention_tailed(**args)
-            err = (got.float() - A.decode_attention_tailed_plain(**ref)).abs().max().item()
-            worst[dtype] = max(worst[dtype], err)
+            want = A.decode_attention_tailed_plain(**(args if store else ref))
+            err = (got.float() - want).abs().max().item()
+            gate = bf16 if store else dtype
+            worst[gate] = max(worst[gate], err)
+            extra = f", {int(((got - want).abs() > 1e-5).sum())} of {got.numel()} above 1e-5" if store else ""
             log(f"[2 K2] {label}: B={B} H={H}/{KV} hd={hd} lim={lim} W={W}: max_abs_err {err:.3e} "
-                f"(gate {K2_GATE if dtype == bf16 else K2_F32_GATE})")
+                f"(gate {K2_GATE if gate == bf16 else K2_F32_GATE}){extra}")
         for dtype in (bf16, f32):  # contiguous form (W = 0, flushed = pos + 1)
             g = torch.Generator(device=dev).manual_seed(5)
             kc, vc = (torch.randn((64, 4, 256, 64), generator=g, device=dev).to(dtype) for _ in "kv")
@@ -893,6 +990,7 @@ class Smoke:
             check(counts == expect, f"launch counts {counts}, expected {expect}")
         log(f"[5 main] median of {REPEATS} on {smi}: first audio {float(np.median(firsts))} ms, "
             f"{float(np.median(rates))} audio-s/s")
+        self.stream_rate = float(np.median(rates))
         for name in self.kernels:
             self.kernels[name]["launches"] = counts[name]
         self._breakdown(cfg, params, mcfg, mimi, token_cfg, settings, state, mstate, gen,
@@ -941,23 +1039,14 @@ class Smoke:
 
     def phase6_greedy_e2e(self):
         from smoltts_torch import ops
-        from smoltts_torch.codec.mimi import init_mimi_params
         from smoltts_torch.lm.samplers import GenerationSettings
-        from smoltts_torch.models.dual_ar import init_params
         from smoltts_torch.ops import attention as A
         from smoltts_torch.ops import fast_loop as FL
         from smoltts_torch.ops import sampling as SP
-        from smoltts_torch.ops.quant import (
-            fuse_decode_params, fuse_mimi_decode_params, quantize_decode_params,
-            quantize_mimi_params,
-        )
 
-        torch, dev = self.torch, self.dev
+        torch = self.torch
         cfg, _, mcfg, _ = self.lm()
-        params = quantize_decode_params(fuse_decode_params(
-            init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32, device=dev)))
-        mimi = quantize_mimi_params(fuse_mimi_decode_params(
-            init_mimi_params(mcfg, seed=0, dtype=torch.float32, device=dev)))
+        params, mimi = self._f32_trees()
         token_cfg, prompt, lens = self._prompts(cfg, 4, 64)
         greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
         n_frames = 16
@@ -983,10 +1072,276 @@ class Smoke:
         check(equal and pcm_err <= 1e-3, "kernel path and plain path differ")
         check(k3 == n_frames, f"K3 launched {k3} times over {n_frames} greedy frames")
 
+    # ---- phase 7: the library API -------------------------------------------
+
+    def _write_checkpoint(self, d: Path, cfg):
+        """The 150M bf16 checkpoint, its tokenizer and a full-size Mimi file in
+        the HF key schema, all written by the port's own code; returns the
+        trees as written."""
+        from smoltts_torch.codec.config import MimiConfig
+        from smoltts_torch.codec.mimi import init_mimi_params
+        from smoltts_torch.io.checkpoint import save_params
+        from smoltts_torch.io.safetensors import save_file
+        from smoltts_torch.models.dual_ar import init_params
+        from smoltts_torch.tokenizer import save_byte_level_tokenizer
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        dense = init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                            device=self.dev)
+        save_params(dense, cfg, d)
+        save_byte_level_tokenizer(d, cfg.codebook_size)
+        mcfg = MimiConfig()
+        mimi = init_mimi_params(mcfg, seed=0, device="cpu")
+        save_file(mimi_hf_state(mimi, mcfg), d / "mimi.safetensors")
+        sizes = {p.name: p.stat().st_size for p in d.iterdir()}
+        log(f"[7 api] wrote {sizes} in {time.perf_counter() - t0:.2f} s")
+        return dense, mimi
+
+    def phase7_library(self):
+        from smoltts_torch import SmolTTS, ops
+        from smoltts_torch.codec.mimi import load_mimi
+        from smoltts_torch.config import DualARConfig
+        from smoltts_torch.io.checkpoint import load_params
+        from smoltts_torch.lm import generate as G
+        from smoltts_torch.lm.samplers import GenerationSettings
+
+        torch, dev = self.torch, self.dev
+        t_phase = time.perf_counter()
+        cfg = self.lm()[0]
+        smi = nvidia_smi()
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            dense, mimi = self._write_checkpoint(d, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = load_params(d, DualARConfig.from_json_file(d / "config.json"), device=dev)
+            torch.cuda.synchronize()
+            t_lm = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded_mimi, _ = load_mimi(d / "mimi.safetensors", device=dev)
+            torch.cuda.synchronize()
+            t_mimi = time.perf_counter() - t0
+            check(trees_equal(loaded, dense), "the loaded LM tree differs from the written one")
+            check(trees_equal(loaded_mimi, mimi), "the loaded Mimi tree differs from the written one")
+            del loaded, loaded_mimi, dense
+            log(f"[7 api] on {smi}: load_params 150M bf16 {t_lm * 1e3:.1f} ms, load_mimi f32 "
+                f"{t_mimi * 1e3:.1f} ms; both trees equal the written ones bit for bit")
+
+            sampled = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05,
+                                         max_new_tokens=32, audio_only_constraint=True)
+            t0 = time.perf_counter()
+            tts = SmolTTS(d, generation_settings=sampled, quantize="int8+kv8", seed=1)
+            torch.cuda.synchronize()
+            log(f"[7 api] SmolTTS(dir, quantize='int8+kv8') ready in {time.perf_counter() - t0:.2f} s")
+            self._api_sampled(tts, cfg, smi, G, ops)
+            del tts
+            self._api_greedy_f32(d, cfg, smi, G)
+        self._chunk_step(cfg, smi)
+        log(f"[7 api] phase 7 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+    def _api_sampled(self, tts, cfg, smi, G, ops):
+        torch = self.torch
+        hop = tts.codec_config.samples_per_frame
+        frames = []
+        real = G.generate_blocking
+
+        def counting(*a, **k):
+            out = real(*a, **k)
+            frames.append(out[2].frames)
+            return out
+
+        tts("Warm up the kernels and the codec.")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(G, "generate_blocking", counting):
+            pcm = tts("Hello there, this is the library speaking on the card.", voice="bella")
+        t_call = time.perf_counter() - t0
+        counts, n = dict(ops.LAUNCHES), frames[-1]
+        check(pcm.ndim == 1 and pcm.size % hop == 0 and pcm.size > 0, f"__call__ PCM {pcm.shape}")
+        check(bool(np.isfinite(pcm).all()), "__call__ PCM not finite")
+        expect = {"fast_loop": n, "sample_categorical": n, "decode_attention": cfg.n_layer * (n - 1)}
+        check(counts == expect, f"__call__ launches {counts}, expected {expect}")
+        log(f"[7 api] __call__ on {smi}: {n} frames, {pcm.size // hop} audio frames, "
+            f"{t_call * 1e3:.1f} ms wall (batch mimi_decode included), "
+            f"{pcm.size / 24_000 / t_call} audio-s/s; launches {counts}")
+
+        for _ in zip(range(4), tts.stream("Warm up the streaming path.")):
+            pass
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks, t_first = [], None
+        for c in tts.stream("Streaming from the library, one frame at a time."):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            chunks.append(c)
+        t_stream = time.perf_counter() - t0
+        counts, n = dict(ops.LAUNCHES), len(chunks)
+        check(all(c.shape == (hop,) and np.isfinite(c).all() for c in chunks), "stream chunks")
+        expect = {"fast_loop": n, "sample_categorical": n, "decode_attention": cfg.n_layer * (n - 1)}
+        check(counts == expect, f"stream launches {counts}, expected {expect}")
+        log(f"[7 api] stream B=1 on {smi}: {n} chunks, first chunk {t_first * 1e3:.1f} ms, "
+            f"{n * 0.08 / t_stream} audio-s/s ({t_stream:.3f} s wall); launches {counts}")
+
+        audio = (np.random.default_rng(0).standard_normal(72_000) * 0.1).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prompt = tts.create_speaker([{"text": "A reference sentence.", "audio": audio}],
+                                    system_prompt="clone this voice")
+        t_spk = time.perf_counter() - t0
+        n_audio = int((prompt[0] >= tts.token_config.semantic_start_id).sum())
+        check(prompt.ndim == 2 and prompt.shape[0] == cfg.num_rows, f"speaker prompt {prompt.shape}")
+        check(n_audio == 38, f"{n_audio} audio columns for 37.5 frames of audio")
+        check(int(prompt.min()) >= 0 and int(prompt[0].max()) < cfg.vocab_size
+              and int(prompt[1:].max()) < cfg.codebook_size, "speaker codes out of range")
+        tts.save_speaker("smoke", prompt)
+        tts._speaker_cache.clear()
+        check(np.array_equal(tts.get_speaker("smoke"), prompt), "save_speaker / get_speaker")
+        log(f"[7 api] create_speaker on 3 s of audio (37.5 frames) on {smi}: prompt "
+            f"{prompt.shape} in {t_spk * 1e3:.1f} ms; save_speaker/get_speaker round trip ok")
+
+    def _api_greedy_f32(self, d, cfg, smi, G):
+        from smoltts_torch import SmolTTS
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.ops import attention as A
+        from smoltts_torch.ops import fast_loop as FL
+        from smoltts_torch.ops import sampling as SP
+
+        torch = self.torch
+        greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0, max_new_tokens=16,
+                                    audio_only_constraint=True)
+        tts = SmolTTS(d, dtype=torch.float32, generation_settings=greedy, quantize="int8")
+        text = "Greedy and plain, side by side."
+
+        def run():
+            prompt = tts._get_prompt(text, "heart")
+            codes = G.generate_blocking(tts.params, tts.config, tts.token_config, greedy, [prompt],
+                                        device=self.dev)[0]
+            return codes, tts(text), list(tts.stream(text))
+
+        kern = run()
+        with mock.patch.object(A, "decode_attention_tailed", A.decode_attention_tailed_plain), \
+                mock.patch.object(A, "decode_attention", A.decode_attention_plain), \
+                mock.patch.object(FL, "fused_fast_micro_loop", FL.fast_micro_loop_plain), \
+                mock.patch.object(SP, "sample_slow_token", SP.sample_slow_token_plain):
+            plain = run()
+        codes_equal = np.array_equal(kern[0], plain[0])
+        if not codes_equal:
+            diff = np.nonzero((kern[0] != plain[0]).any(axis=(0, 1)))[0]
+            log(f"[7 api] greedy f32: codes differ from frame {int(diff[0])} on ({len(diff)} frames)")
+        call_err = (float(np.abs(kern[1] - plain[1]).max()) if kern[1].shape == plain[1].shape
+                    and kern[1].size else (0.0 if kern[1].shape == plain[1].shape else math.inf))
+        stream_err = (max(float(np.abs(a - b).max()) for a, b in zip(kern[2], plain[2]))
+                      if len(kern[2]) == len(plain[2]) else math.inf)
+        log(f"[7 api] greedy f32 int8 (bf16 KV cache) on {smi}: generate_blocking codes "
+            f"{kern[0].shape} equal {codes_equal}; __call__ PCM {kern[1].shape} max abs diff "
+            f"{call_err:.3e}, stream {len(kern[2])} chunks max abs diff {stream_err:.3e} (gate 1e-3)")
+        check(codes_equal and call_err <= 1e-3 and stream_err <= 1e-3,
+              "greedy kernel path and plain path differ")
+
+    def _chunk_step(self, cfg, smi):
+        from smoltts_torch import ops
+        from smoltts_torch.codec.mimi import decode_stream_init
+        from smoltts_torch.lm.decode import init_decode_state
+        from smoltts_torch.lm.pipeline import (
+            flush_cadence, make_chunk_step, make_flush_step, make_prefill_step, make_stream_step,
+        )
+        from smoltts_torch.lm.samplers import GenerationSettings
+
+        torch, dev = self.torch, self.dev
+        _, params, mcfg, mimi = self.lm()
+        K, B, bucket, chunks = 8, 64, 256, 8
+        token_cfg, prompt, lens = self._prompts(cfg, B, 64)
+        settings = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05)
+
+        def run(params, mimi, settings, prompt, lens, kv_dtype, act_dtype, n_chunks):
+            B = prompt.shape[0]
+            state = init_decode_state(cfg, B, 1024, dtype=kv_dtype, tail_len=128, device=dev)
+            ms = decode_stream_init(mcfg, B, dtype=act_dtype, tail_len=64, device=dev,
+                                    kv_dtype=torch.int8 if kv_dtype == torch.int8 else None)
+            prefill = make_prefill_step(cfg, token_cfg, settings, mcfg, device=dev)
+            chunk = make_chunk_step(cfg, token_cfg, settings, mcfg, K, attend_limit=bucket,
+                                    device=dev)
+            flush = make_flush_step(device=dev)
+            cadence = flush_cadence(state, ms)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, ms, gen, first = prefill(params, mimi, state, ms, torch.from_numpy(prompt).to(dev),
+                                            torch.from_numpy(lens).to(dev), gen)
+            outs, since, flushes = [], 0, 0
+            for _ in range(n_chunks):
+                if since + K > cadence:
+                    state, ms = flush(state, ms)
+                    since, flushes = 0, flushes + 1
+                state, ms, gen, out = chunk(params, mimi, state, ms, gen)
+                since += K
+                outs.append(out)
+            outs[-1].pcm.cpu()
+            return time.perf_counter() - t0, first, outs, flushes
+
+        run(params, mimi, settings, prompt, lens, torch.int8, torch.bfloat16, 1)  # warm-up
+        rates = []
+        for rep in range(REPEATS):
+            ops.reset_launch_counts()
+            wall, _, outs, flushes = run(params, mimi, settings, prompt, lens, torch.int8,
+                                         torch.bfloat16, chunks)
+            counts, n = dict(ops.LAUNCHES), 1 + K * chunks
+            expect = {"fast_loop": n, "sample_categorical": n,
+                      "decode_attention": cfg.n_layer * K * chunks}
+            check(counts == expect, f"chunk-step launches {counts}, expected {expect}")
+            for o in outs:
+                check(tuple(o.pcm.shape) == (B, K * mcfg.samples_per_frame, 1), f"PCM {tuple(o.pcm.shape)}")
+                check(bool(torch.isfinite(o.pcm).all()), "chunk-step PCM not finite")
+                check(tuple(o.audio_codes.shape) == (B, cfg.num_codebooks, K), "chunk codes shape")
+            rates.append(B * n * 0.08 / wall)
+            log(f"[7 chunk] repeat {rep}: 150M int8+kv8 B={B} chunk {K} bucket {bucket}, {n} frames "
+                f"({flushes} flushes) on {smi}: {rates[-1]} audio-s/s (wall {wall} s); launches {counts}")
+        stream = "not measured (phase 5 not run)" if self.stream_rate is None else self.stream_rate
+        log(f"[7 chunk] median of {REPEATS} on {smi}: chunk step {float(np.median(rates))} audio-s/s; "
+            f"phase 5 stream step in this run: {stream} audio-s/s")
+
+        # greedy f32 at B=4: one chunk of K frames == K stream steps (no flush in 16 frames)
+        p32, m32 = self._f32_trees()
+        greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
+        tok4, prompt4, lens4 = self._prompts(cfg, 4, 64)
+        _, first, outs, _ = run(p32, m32, greedy, prompt4, lens4, torch.float32, torch.float32, 2)
+        chunk_codes = torch.cat([o.audio_codes for o in outs], dim=-1)
+        _, _, souts, _ = self._run_stream(cfg, p32, mcfg, m32, tok4, greedy, prompt4, lens4,
+                                          1 + 2 * K, torch.float32, torch.float32)
+        stream_codes = torch.stack([o.audio_codes for o in souts[1:]], dim=-1)
+        equal = bool((chunk_codes == stream_codes).all()) and bool(
+            (first.audio_codes == souts[0].audio_codes).all())
+        pcm_err = (torch.cat([o.pcm for o in outs], 1) - torch.cat([o.pcm for o in souts[1:]], 1)
+                   ).abs().max().item()
+        log(f"[7 chunk] greedy f32 B=4, 2 chunks of {K}: chunk-step codes == stream-step codes "
+            f"{equal}, PCM max abs diff {pcm_err:.3e}")
+        check(equal, "chunk-step codes differ from stream-step codes")
+
+    def _f32_trees(self):
+        """Phase 6's trees: 150M f32 int8 LM and the Mimi f32 int8 tree."""
+        from smoltts_torch.codec.mimi import init_mimi_params
+        from smoltts_torch.models.dual_ar import init_params
+        from smoltts_torch.ops.quant import (
+            fuse_decode_params, fuse_mimi_decode_params, quantize_decode_params,
+            quantize_mimi_params,
+        )
+
+        torch, dev = self.torch, self.dev
+        cfg, _, mcfg, _ = self.lm()
+        params = quantize_decode_params(fuse_decode_params(
+            init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32, device=dev)))
+        mimi = quantize_mimi_params(fuse_mimi_decode_params(
+            init_mimi_params(mcfg, seed=0, dtype=torch.float32, device=dev)))
+        return params, mimi
+
     def run(self, phases=None):
         table = [
             (1, self.phase1_build), (2, self.phase2_attention), (3, self.phase3_fast_loop),
             (4, self.phase4_sampler), (5, self.phase5_main_path), (6, self.phase6_greedy_e2e),
+            (7, self.phase7_library),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of smoltts: the DualAR text-to-speech decoder and the
-Mimi streaming vocoder on an NVIDIA Hopper card.
+Mimi codec on an NVIDIA Hopper card, behind the library API `SmolTTS`
+(smoltts_torch/api.py).
 
 The package imports torch and numpy only. Its three hand-written CUDA kernels
 (`csrc/*.cu`) are compiled with nvcc at first use into `build/smoltts_torch/`;
@@ -20,3 +21,13 @@ def resolve_device(device=None) -> torch.device:
             "the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def __getattr__(name):
+    # `SmolTTS` and `VOICES` live in smoltts_torch.api, imported on first use
+    # so that `import smoltts_torch` stays free of the model and codec.
+    if name in ("SmolTTS", "VOICES"):
+        from smoltts_torch import api
+
+        return getattr(api, name)
+    raise AttributeError(f"module 'smoltts_torch' has no attribute {name!r}")

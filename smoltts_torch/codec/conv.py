@@ -1,9 +1,12 @@
-"""Streaming causal 1-D convolutions for the Mimi decoder.
+"""Causal 1-D convolutions for the Mimi SEANet stacks, batch and streaming.
 
 Activations are [B, L, C] and kernels [K, C_in/groups, C_out] at the public
 functions, as in the JAX package; each call converts to torch's [B, C, L] and
 [C_out, C_in/groups, K]. Transpose-conv kernels arrive pre-flipped.
 
+Batch: causal convs left-pad `eff_k - stride` samples and right-pad to whole
+output frames; transpose convs trim `kernel - stride` samples, split by
+`trim_right_ratio`. Streaming:
 - causal conv: a rolling input buffer of `eff_k - stride` samples,
   zero-initialised and refreshed with the last inputs each step;
 - transpose conv: a bias-free overlap-add tail of `kernel - stride` samples.
@@ -11,14 +14,61 @@ functions, as in the JAX package; each call converts to torch's [B, C, L] and
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+_PAD_MODES = {"constant": "constant", "replicate": "replicate", "edge": "replicate",
+              "reflect": "reflect"}
+
 
 def effective_kernel(kernel: int, dilation: int) -> int:
     return (kernel - 1) * dilation + 1
+
+
+def _pad_time(x: torch.Tensor, left: int, right: int, mode: str) -> torch.Tensor:
+    """Pad [B, L, C] along time; a reflect pad longer than the input first
+    zero-extends it, then drops the extension."""
+    if left == 0 and right == 0:
+        return x
+    tmode = _PAD_MODES[mode]
+    xt = x.transpose(1, 2)
+    extra = 0
+    if tmode == "reflect" and x.shape[1] <= max(left, right):
+        extra = max(left, right) - x.shape[1] + 1
+        xt = F.pad(xt, (0, extra))
+    padded = F.pad(xt, (left, right), mode=tmode)
+    if extra:
+        padded = padded[..., : padded.shape[-1] - extra]
+    return padded.transpose(1, 2)
+
+
+def extra_pad_for_frame_align(length: int, eff_k: int, stride: int) -> int:
+    """Right padding so the conv output covers whole frames."""
+    padding_total = eff_k - stride
+    n_frames = (length - eff_k + padding_total) / stride + 1
+    ideal = (math.ceil(n_frames) - 1) * stride + eff_k - padding_total
+    return ideal - length
+
+
+def causal_conv1d(x, w, b, *, stride=1, dilation=1, pad_mode="constant", groups=1) -> torch.Tensor:
+    """Batch causal conv: left-pad eff_k - stride, right-pad to frame-align."""
+    eff_k = effective_kernel(w.shape[0], dilation)
+    extra = extra_pad_for_frame_align(x.shape[1], eff_k, stride)
+    x = _pad_time(x, eff_k - stride, extra, pad_mode)
+    return conv1d_raw(x, w, b, stride=stride, dilation=dilation, groups=groups)
+
+
+def causal_conv_transpose1d(x, w_flipped, b, *, stride, groups=1,
+                            trim_right_ratio: float = 1.0) -> torch.Tensor:
+    """Batch transpose conv with causal trimming."""
+    y = conv_transpose1d_raw(x, w_flipped, b, stride=stride, groups=groups)
+    padding_total = w_flipped.shape[0] - stride
+    padding_right = math.ceil(padding_total * trim_right_ratio)
+    padding_left = padding_total - padding_right
+    return y[:, padding_left : y.shape[1] - padding_right]
 
 
 def conv1d_raw(x, w, b, *, stride=1, dilation=1, groups=1) -> torch.Tensor:

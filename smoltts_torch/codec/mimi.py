@@ -1,6 +1,15 @@
-"""Mimi codec, streaming decode side: random init, streaming state and the
-per-frame step codes -> RVQ decode -> depthwise transpose-conv upsample ->
-decoder transformer -> SEANet decoder -> PCM (1920 samples per frame).
+"""Mimi codec: weight import, random init, batch encode and decode, and the
+streaming decode step.
+
+  encode: audio [B, L, 1] -> SEANet encoder -> encoder transformer ->
+          stride-2 downsample -> split-RVQ encode -> codes [B, nq, T]
+  decode: codes [B, K, T] -> RVQ decode -> depthwise transpose-conv upsample
+          -> decoder transformer -> SEANet decoder -> PCM [B, T * 1920, 1]
+
+Weights load from the kyutai/mimi safetensors release or any HF
+`MimiModel` state dict (one key schema): convs become [K, I/groups, O],
+transpose-conv kernels are pre-flipped, codebooks are materialized as
+`embed_sum / max(cluster_usage, 1e-5)`.
 
 `init_mimi_params` draws with `np.random.default_rng(seed)` in the JAX
 package's order, draw for draw, so equal seeds give equal weights in both
@@ -9,18 +18,26 @@ packages with no bridge.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from pathlib import Path
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from smoltts_torch import resolve_device
 from smoltts_torch.codec.config import MimiConfig
-from smoltts_torch.codec.conv import convtr_stream_init, convtr_stream_step
-from smoltts_torch.codec.rvq import split_rvq_decode
+from smoltts_torch.codec.conv import (
+    causal_conv1d,
+    causal_conv_transpose1d,
+    convtr_stream_init,
+    convtr_stream_step,
+)
+from smoltts_torch.codec.rvq import split_rvq_decode, split_rvq_encode
 from smoltts_torch.codec.seanet import (
+    ConvSpec,
     build_decoder_plan,
     build_encoder_plan,
+    seanet_apply,
     seanet_stream_init,
     seanet_stream_step,
 )
@@ -28,11 +45,128 @@ from smoltts_torch.codec.transformer import (
     TransformerRingState,
     flush_transformer_ring,
     ring_state_init,
+    transformer_forward,
     transformer_stream_step,
 )
 from smoltts_torch.interop import TensorTree, tree_map
+from smoltts_torch.io.safetensors import load_file
 
 MimiParams = Dict[str, object]
+
+
+# ---- weight import ---------------------------------------------------------
+
+
+def _conv_w(state, key, bias_key=None) -> dict:
+    """torch Conv1d weight [O, I/groups, K] -> [K, I/groups, O]."""
+    p = {"w": state[key].permute(2, 1, 0).contiguous()}
+    if bias_key and bias_key in state:
+        p["b"] = state[bias_key]
+    return p
+
+
+def _convtr_w(state, key, bias_key, groups: int) -> dict:
+    """torch ConvTranspose1d weight [I, O/groups, K] -> flipped [K, I/groups, O]:
+    [I, O, K] -> [K, I, O] for groups == 1, [I, 1, K] -> [K, 1, I] for the
+    depthwise upsample (groups == I)."""
+    wf = state[key].flip(-1)
+    if groups == 1:
+        p = {"w": wf.permute(2, 0, 1).contiguous()}
+    elif groups == wf.shape[0] and wf.shape[1] == 1:
+        p = {"w": wf.permute(2, 1, 0).contiguous()}
+    else:
+        raise NotImplementedError(f"grouped convtr groups={groups} shape={tuple(wf.shape)}")
+    if bias_key and bias_key in state:
+        p["b"] = state[bias_key]
+    return p
+
+
+def _seanet_params(state, plan: List[ConvSpec], prefix: str) -> List:
+    params: List = []
+    for i, spec in enumerate(plan):
+        base = f"{prefix}.layers.{i}"
+        if spec.kind == "elu":
+            params.append(None)
+        elif spec.kind == "conv":
+            params.append(_conv_w(state, f"{base}.conv.weight", f"{base}.conv.bias"))
+        elif spec.kind == "convtr":
+            params.append(_convtr_w(state, f"{base}.conv.weight", f"{base}.conv.bias", groups=1))
+        elif spec.kind == "resnet":
+            params.append({
+                "conv1": _conv_w(state, f"{base}.block.1.conv.weight", f"{base}.block.1.conv.bias"),
+                "conv2": _conv_w(state, f"{base}.block.3.conv.weight", f"{base}.block.3.conv.bias"),
+            })
+    return params
+
+
+_TRANSFORMER_KEYS = {  # leaf -> (HF key under `{prefix}.layers.{i}.`, transposed)
+    "ln1_w": ("input_layernorm.weight", False),
+    "ln1_b": ("input_layernorm.bias", False),
+    "ln2_w": ("post_attention_layernorm.weight", False),
+    "ln2_b": ("post_attention_layernorm.bias", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+    "fc1": ("mlp.fc1.weight", True),
+    "fc2": ("mlp.fc2.weight", True),
+    "scale_attn": ("self_attn_layer_scale.scale", False),
+    "scale_mlp": ("mlp_layer_scale.scale", False),
+}
+
+
+def _transformer_params(state, prefix: str, n_layers: int) -> dict:
+    layers = {}
+    for name, (key, transpose) in _TRANSFORMER_KEYS.items():
+        a = torch.stack([state[f"{prefix}.layers.{i}.{key}"] for i in range(n_layers)], dim=0)
+        layers[name] = a.transpose(1, 2).contiguous() if transpose else a
+    return {"layers": layers}
+
+
+def _rvq_side(state, prefix: str, n_layers: int, eps: float = 1e-5) -> dict:
+    embeds = []
+    for i in range(n_layers):
+        es = state[f"{prefix}.layers.{i}.codebook.embed_sum"]
+        cu = state[f"{prefix}.layers.{i}.codebook.cluster_usage"]
+        embeds.append(es / torch.clamp_min(cu, eps)[:, None])
+    return {
+        "in_proj": state[f"{prefix}.input_proj.weight"][:, :, 0].T.contiguous(),
+        "out_proj": state[f"{prefix}.output_proj.weight"][:, :, 0].T.contiguous(),
+        "embed": torch.stack(embeds, dim=0),  # [K, codebook_size, dim]
+    }
+
+
+def params_from_hf_state_dict(state: Dict[str, torch.Tensor], cfg: MimiConfig) -> MimiParams:
+    """The parameter tree from a kyutai/HF Mimi state dict (tensor-valued)."""
+    q = "quantizer"
+    return {
+        "encoder": _seanet_params(state, build_encoder_plan(cfg), "encoder"),
+        "encoder_transformer": _transformer_params(state, "encoder_transformer",
+                                                   cfg.num_hidden_layers),
+        "downsample": _conv_w(state, "downsample.conv.weight", "downsample.conv.bias"),
+        "upsample": _convtr_w(state, "upsample.conv.weight", "upsample.conv.bias",
+                              groups=cfg.upsample_groups),
+        "decoder_transformer": _transformer_params(state, "decoder_transformer",
+                                                   cfg.num_hidden_layers),
+        "decoder": _seanet_params(state, build_decoder_plan(cfg), "decoder"),
+        "quantizer": {
+            "semantic": _rvq_side(state, f"{q}.semantic_residual_vector_quantizer",
+                                  cfg.num_semantic_quantizers),
+            "acoustic": _rvq_side(state, f"{q}.acoustic_residual_vector_quantizer",
+                                  cfg.num_quantizers - cfg.num_semantic_quantizers),
+        },
+    }
+
+
+def load_mimi(path: Union[str, Path], cfg: Optional[MimiConfig] = None, dtype=None,
+              device=None) -> Tuple[MimiParams, MimiConfig]:
+    """Mimi weights from a safetensors file in the kyutai/HF key schema.
+    Leaves keep the file's dtype unless `dtype` is given. `device=None` means
+    CUDA (checked before the file is read)."""
+    dev = resolve_device(device)
+    cfg = cfg or MimiConfig()
+    params = params_from_hf_state_dict(load_file(path), cfg)
+    return tree_map(lambda t: t.to(device=dev, dtype=dtype or t.dtype), params), cfg
 
 
 def init_mimi_params(cfg: MimiConfig, seed: int = 0, dtype=torch.float32, device=None) -> MimiParams:
@@ -104,6 +238,33 @@ def init_mimi_params(cfg: MimiConfig, seed: int = 0, dtype=torch.float32, device
         },
     }
     return tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(device=dev, dtype=dtype), params)
+
+
+# ---- batch encode / decode -------------------------------------------------
+
+
+@torch.no_grad()
+def mimi_encode(params: MimiParams, cfg: MimiConfig, audio: torch.Tensor,
+                num_quantizers: Optional[int] = None) -> torch.Tensor:
+    """audio [B, L] or [B, L, 1] -> codes [B, nq, ceil(L / 1920)] int32."""
+    if audio.dim() == 2:
+        audio = audio[..., None]
+    x = seanet_apply(build_encoder_plan(cfg), params["encoder"], audio, cfg)
+    x = transformer_forward(params["encoder_transformer"], cfg, x)
+    x = causal_conv1d(x, params["downsample"]["w"], params["downsample"].get("b"),
+                      stride=cfg.downsample_stride, pad_mode="replicate")
+    return split_rvq_encode(x, params["quantizer"], cfg, num_quantizers)
+
+
+@torch.no_grad()
+def mimi_decode(params: MimiParams, cfg: MimiConfig, codes: torch.Tensor) -> torch.Tensor:
+    """codes [B, K, T] -> PCM [B, T * 1920, 1], the whole sequence at once."""
+    emb = split_rvq_decode(codes, params["quantizer"], cfg)
+    emb = causal_conv_transpose1d(emb, params["upsample"]["w"], params["upsample"].get("b"),
+                                  stride=cfg.downsample_stride, groups=cfg.upsample_groups,
+                                  trim_right_ratio=cfg.trim_right_ratio)
+    emb = transformer_forward(params["decoder_transformer"], cfg, emb)
+    return seanet_apply(build_decoder_plan(cfg), params["decoder"], emb, cfg)
 
 
 class MimiDecoder(TensorTree):

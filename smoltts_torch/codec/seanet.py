@@ -1,4 +1,5 @@
-"""SEANet decoder for Mimi: a static layer plan and its streaming step.
+"""SEANet encoder and decoder for Mimi: static layer plans, the batch stack
+and the decoder's streaming step.
 
 A plan is a list of `ConvSpec`s; parameters and streaming state are lists
 aligned with it (None for ELU entries).
@@ -7,13 +8,15 @@ aligned with it (None for ELU entries).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from smoltts_torch.codec.config import MimiConfig
 from smoltts_torch.codec.conv import (
+    causal_conv1d,
+    causal_conv_transpose1d,
     conv_stream_init,
     conv_stream_step,
     convtr_stream_init,
@@ -36,7 +39,6 @@ class ConvSpec:
 
 
 def build_encoder_plan(cfg: MimiConfig) -> List[ConvSpec]:
-    """The encoder's plan (needed here only for parameter init draws)."""
     plan = [ConvSpec("conv", cfg.audio_channels, cfg.num_filters, cfg.kernel_size)]
     scaling = 1
     for ratio in reversed(cfg.upsampling_ratios):
@@ -70,6 +72,39 @@ def build_decoder_plan(cfg: MimiConfig) -> List[ConvSpec]:
     plan.append(ConvSpec("elu"))
     plan.append(ConvSpec("conv", cfg.num_filters, cfg.audio_channels, cfg.last_kernel_size))
     return plan
+
+
+def _elu(x):
+    return F.elu(x)
+
+
+def _resnet_apply(spec: ConvSpec, p: dict, x: torch.Tensor, pad_mode: str) -> torch.Tensor:
+    """ELU, conv (k, dilation), ELU, conv (1), plus the residual."""
+    h = causal_conv1d(_elu(x), p["conv1"]["w"], p["conv1"].get("b"),
+                      dilation=spec.res_dilations[0], pad_mode=pad_mode)
+    h = causal_conv1d(_elu(h), p["conv2"]["w"], p["conv2"].get("b"),
+                      dilation=spec.res_dilations[1], pad_mode=pad_mode)
+    return x + h
+
+
+def seanet_apply(plan: List[ConvSpec], params: List, x: torch.Tensor, cfg: MimiConfig,
+                 trim_right_ratio: Optional[float] = None) -> torch.Tensor:
+    """The whole stack over x [B, L, C] at once."""
+    trr = cfg.trim_right_ratio if trim_right_ratio is None else trim_right_ratio
+    for spec, p in zip(plan, params):
+        if spec.kind == "elu":
+            x = _elu(x)
+        elif spec.kind == "conv":
+            x = causal_conv1d(x, p["w"], p.get("b"), stride=spec.stride, dilation=spec.dilation,
+                              pad_mode=cfg.pad_mode)
+        elif spec.kind == "convtr":
+            x = causal_conv_transpose1d(x, p["w"], p.get("b"), stride=spec.stride,
+                                        trim_right_ratio=trr)
+        elif spec.kind == "resnet":
+            x = _resnet_apply(spec, p, x, cfg.pad_mode)
+        else:
+            raise ValueError(spec.kind)
+    return x
 
 
 def seanet_stream_init(plan: List[ConvSpec], batch: int, dtype=torch.float32, device=None) -> List:

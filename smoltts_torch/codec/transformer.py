@@ -121,6 +121,49 @@ def _qkv(h, lp, B, T, H, hd):
     return q.reshape(B, T, H, hd), k.reshape(B, T, H, hd), v.reshape(B, T, H, hd)
 
 
+def _mha(q, k, v, mask, scale):
+    """q [B, Tq, H, hd], k/v [B, Tk, H, hd], mask bool broadcastable to
+    [B, H, Tq, Tk] -> [B, Tq, H * hd]."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = logits.masked_fill(~mask, -math.inf)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return out.reshape(*q.shape[:2], -1)
+
+
+def _block(x, lp, cfg: MimiConfig, attn_fn):
+    """One pre-norm block with LayerScale."""
+    h = _layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
+    x = x + attn_fn(h, lp) * lp["scale_attn"]
+    h = _layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps)
+    return x + mm(F.gelu(mm(h, lp["fc1"])), lp["fc2"]) * lp["scale_mlp"]
+
+
+def transformer_forward(params: dict, cfg: MimiConfig, x: torch.Tensor,
+                        positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole sequence x [B, T, d] at once, causal attention within the
+    sliding window."""
+    B, T, _ = x.shape
+    H, hd = cfg.num_attention_heads, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(T, device=x.device)
+    cos, sin = _rope_half_cos_sin(positions, hd, cfg.rope_theta)
+    t = torch.arange(T, device=x.device)
+    mask = ((t[:, None] >= t[None, :]) & (t[:, None] - t[None, :] < cfg.sliding_window))[None, None]
+    scale = hd**-0.5
+
+    def attn(h, lp):
+        q, k, v = _qkv(h, lp, B, T, H, hd)
+        q = _apply_rope_half(q, cos, sin)
+        k = _apply_rope_half(k, cos, sin)
+        return mm(_mha(q, k, v, mask, scale), lp["wo"])
+
+    layers = params["layers"]
+    for l in range(layers["ln1_w"].shape[0]):
+        x = _block(x, {k: qindex(v, l) for k, v in layers.items()}, cfg, attn)
+    return x
+
+
 def transformer_stream_step(params: dict, cfg: MimiConfig, state: TransformerRingState,
                             x: torch.Tensor):
     """x [B, T, d] (2 new tokens per 80 ms frame) -> (state', y [B, T, d]).

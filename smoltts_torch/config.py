@@ -117,6 +117,15 @@ class DualARConfig:
         with open(p, "r", encoding="utf-8") as f:
             return cls.from_dict(json.load(f))
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def save(self, path: Union[str, Path]) -> None:
+        """Write `config.json` as the JAX package writes it (sorted keys,
+        4-space indent)."""
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.to_dict(), f, indent=4, sort_keys=True, ensure_ascii=False)
+
 
 def smoltts_byte_150m() -> DualARConfig:
     """The released 150M config (sample_model_sizes/smoltts_byte_150m.json)."""

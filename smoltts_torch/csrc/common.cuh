@@ -28,17 +28,25 @@ __device__ __forceinline__ U4 philox4x32_10(U4 ctr, uint32_t k0, uint32_t k1) {
   return ctr;
 }
 
-// Standard Gumbel noise for element `col` of stream (a, b): the top 24 bits
-// of one Philox word, mapped to u in (0, 1) at the bin centre, then
-// -log(-log(u)). `seed` holds {seed, offset} as two int64 on the device.
+// The one word-to-Gumbel mapping of the repo: the top 23 bits of a Philox
+// word at their bin centre, u = (k + 0.5) * 2^-23. Every such u is exact in
+// f32 and lies inside (0, 1), so the noise is always finite (with 24 bits the
+// `+ 0.5` of the last bin rounds u to 1 and gives +inf). Accurate `logf`.
+__device__ __forceinline__ float gumbel_word(uint32_t w) {
+  const float u = ((float)(w >> 9) + 0.5f) * (1.0f / 8388608.0f);
+  return -logf(-logf(u));
+}
+
+// Standard Gumbel noise for element `col` of stream (a, b), from the first
+// word of one Philox call. `seed` holds {seed, offset} as two int64 on the
+// device.
 __device__ __forceinline__ float gumbel(const long long* seed, uint32_t col, uint32_t a,
                                         uint32_t b) {
   const unsigned long long s = (unsigned long long)seed[0];
   const unsigned long long off = (unsigned long long)seed[1];
   U4 c{col, a, b, (uint32_t)off};
   U4 r = philox4x32_10(c, (uint32_t)s, (uint32_t)(s >> 32));
-  float u = ((float)(r.x >> 8) + 0.5f) * (1.0f / 16777216.0f);
-  return -logf(-logf(u));
+  return gumbel_word(r.x);
 }
 
 // ---- dtype helpers

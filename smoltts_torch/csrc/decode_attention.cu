@@ -1,6 +1,7 @@
 // Single-query GQA decode attention over a split KV cache: a frozen history
 // (int8 with per-vector k/v scales, or the compute dtype) plus a ring tail in
-// the compute dtype.
+// the compute dtype; and, at the end of the file, f32 compute over a bf16
+// tail and history.
 //
 // Replaces the Pallas kernel smoltts_tpu/ops/attention.py::_decode_attn_kernel
 // (launched by decode_attention_pallas) and covers the tailed kv8 contract the
@@ -450,11 +451,162 @@ int by_shape(const Call* c, int hd, int G) {
   return G <= 3 ? launch<T, HT, KV8, 128, 3>(c, &occ[1][0]) : launch<T, HT, KV8, 128, 8>(c, &occ[1][1]);
 }
 
+// ---- f32 compute over a bf16 tail (the bf16 cache of an f32 model, which
+// the library's blocking generator keeps). The plain version (as the JAX
+// package) rounds the tail's probabilities to bf16 and sums their product
+// with the bf16 values into a bf16 result; a greedy f32 run that must give
+// the plain path's codes needs the same rounding points, which the online
+// softmax above cannot place (it never holds a normalized probability). So
+// this path takes an exact softmax in three passes over the valid rows, one
+// block per (row, kv head): the max, the sum of exponentials, then the
+// probabilities (the history's in f32, times the value scale with kv8; the
+// tail's rounded to bf16) times the values, the tail's sum rounded to bf16
+// before it joins the history's. Logits are recomputed in each pass. Off the
+// streaming path (which keeps its tail in the compute dtype).
+constexpr int kTile = 32;  // rows whose probabilities one pass-3 step stages
+
+template <typename HT, bool KV8, int HD>
+__device__ __forceinline__ void row_logits(float (*qs)[HD], int G, float scale,
+                                           const HT* krow, float ks, float* x) {
+  for (int g = 0; g < G; ++g) x[g] = 0.f;
+  for (int d = 0; d < HD; ++d) {
+    const float k = to_f(krow[d]);
+    for (int g = 0; g < G; ++g) x[g] = fmaf(qs[g][d], k, x[g]);
+  }
+  for (int g = 0; g < G; ++g) x[g] = KV8 ? x[g] * scale * ks : x[g] * scale;
+}
+
+// Grid (n_kv, B), kThreads threads.
+template <typename HT, bool KV8, int HD>
+__global__ void __launch_bounds__(kThreads)
+decode_attn_bf16_tail_kernel(const float* __restrict__ q, const HT* __restrict__ k_hist,
+                             const HT* __restrict__ v_hist, const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale, long long hsb, long long hsh,
+                             long long ssb, long long ssh, const __nv_bfloat16* __restrict__ k_tail,
+                             const __nv_bfloat16* __restrict__ v_tail, const int* __restrict__ pos,
+                             const int* __restrict__ flushed, const int* __restrict__ tail_pos,
+                             float* __restrict__ out, int H, int n_kv, int lim, int W) {
+  constexpr int kOut = kMaxGroup * HD / kThreads;  // outputs per thread, at most
+  __shared__ int cols[kMaxW];
+  __shared__ float qs[kMaxGroup][HD];
+  __shared__ float stat[2][kMaxGroup];  // max, sum of exponentials
+  __shared__ float red[32];
+  __shared__ float pt[kMaxGroup][kTile];
+  const int h = blockIdx.x, b = blockIdx.y, G = H / n_kv;
+  const int p_b = __ldg(pos + b), f_b = __ldg(flushed + b);
+  const int n_h = max(0, min(f_b, lim));
+  int n_tail = 0;  // valid tail columns in column order, as the plain mask takes them
+  for (int c0 = 0; c0 < W; c0 += kThreads) {
+    const int c = c0 + threadIdx.x;
+    const int t = c < W ? __ldg(tail_pos + (long long)b * W + c) : -1;
+    const bool ok = t >= 0 && t >= f_b && t <= p_b;
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    __shared__ int wcnt[kWarps];
+    if ((threadIdx.x & 31) == 0) wcnt[threadIdx.x >> 5] = __popc(m);
+    __syncthreads();
+    int before = n_tail;
+    for (int w = 0; w < (int)(threadIdx.x >> 5); ++w) before += wcnt[w];
+    if (ok) cols[before + __popc(m & ((1u << (threadIdx.x & 31)) - 1u))] = c;
+    for (int w = 0; w < kWarps; ++w) n_tail += wcnt[w];
+    __syncthreads();
+  }
+  const float* qb = q + ((long long)b * H + h * G) * HD;
+  for (int i = threadIdx.x; i < G * HD; i += kThreads) qs[i / HD][i % HD] = qb[i];
+  __syncthreads();
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  const long long hoff = b * hsb + h * hsh, soff = b * ssb + h * ssh;
+  const long long toff = ((long long)b * n_kv + h) * W * HD;
+  const int n = n_h + n_tail;
+  auto logits = [&](int i, float* x) {
+    if (i < n_h)
+      row_logits<HT, KV8, HD>(qs, G, scale, k_hist + hoff + (long long)i * HD,
+                              KV8 ? __ldg(k_scale + soff + i) : 1.f, x);
+    else
+      row_logits<__nv_bfloat16, false, HD>(qs, G, scale,
+                                           k_tail + toff + (long long)cols[i - n_h] * HD, 1.f, x);
+  };
+
+  // Passes 1 and 2: the max and the sum of exponentials per head.
+  for (int pass = 0; pass < 2; ++pass) {
+    float acc[kMaxGroup];
+    for (int g = 0; g < G; ++g) acc[g] = pass == 0 ? -INFINITY : 0.f;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      float x[kMaxGroup];
+      logits(i, x);
+      for (int g = 0; g < G; ++g)
+        acc[g] = pass == 0 ? fmaxf(acc[g], x[g]) : acc[g] + expf(x[g] - stat[0][g]);
+    }
+    for (int g = 0; g < G; ++g) {
+      const float r = pass == 0 ? block_max(acc[g], red) : block_sum(acc[g], red);
+      if (threadIdx.x == 0) stat[pass][g] = r;
+    }
+    __syncthreads();
+  }
+
+  // Pass 3: probabilities of kTile rows at a time, then every output
+  // (g, d) of the group takes them times the values.
+  float acc_h[kOut], acc_t[kOut];
+  for (int k = 0; k < kOut; ++k) acc_h[k] = acc_t[k] = 0.f;
+  for (int i0 = 0; i0 < n; i0 += kTile) {
+    if (threadIdx.x < G * kTile) {
+      const int g = threadIdx.x / kTile, i = i0 + threadIdx.x % kTile;
+      float p = 0.f;
+      if (i < n) {
+        float x[kMaxGroup];
+        logits(i, x);
+        p = expf(x[g] - stat[0][g]) / stat[1][g];
+        if (i >= n_h) p = round_to<__nv_bfloat16>(p);
+        else if (KV8) p *= __ldg(v_scale + soff + i);
+      }
+      pt[g][threadIdx.x % kTile] = p;
+    }
+    __syncthreads();
+    for (int k = 0; k < kOut; ++k) {
+      const int o = threadIdx.x + k * kThreads, g = o / HD, d = o % HD;
+      if (g >= G) break;
+      for (int j = 0; j < kTile && i0 + j < n; ++j) {
+        const int i = i0 + j;
+        if (i < n_h)
+          acc_h[k] = fmaf(pt[g][j], to_f(v_hist[hoff + (long long)i * HD + d]), acc_h[k]);
+        else
+          acc_t[k] = fmaf(pt[g][j], to_f(v_tail[toff + (long long)cols[i - n_h] * HD + d]), acc_t[k]);
+      }
+    }
+    __syncthreads();
+  }
+  for (int k = 0; k < kOut; ++k) {
+    const int o = threadIdx.x + k * kThreads, g = o / HD, d = o % HD;
+    if (g >= G) break;
+    out[((long long)b * H + h * G + g) * HD + d] = acc_h[k] + round_to<__nv_bfloat16>(acc_t[k]);
+  }
+}
+
+template <typename HT, bool KV8>
+int launch_bf16_tail(const Call* c) {
+  const dim3 grid(c->n_kv, c->B);
+  if (c->hd == 64)
+    decode_attn_bf16_tail_kernel<HT, KV8, 64><<<grid, kThreads, 0, c->stream>>>(
+        (const float*)c->q, (const HT*)c->k_hist, (const HT*)c->v_hist, c->k_scale, c->v_scale,
+        c->hsb, c->hsh, c->ssb, c->ssh, (const __nv_bfloat16*)c->k_tail,
+        (const __nv_bfloat16*)c->v_tail, c->pos, c->flushed, c->tail_pos, (float*)c->out, c->H,
+        c->n_kv, c->lim, c->W);
+  else
+    decode_attn_bf16_tail_kernel<HT, KV8, 128><<<grid, kThreads, 0, c->stream>>>(
+        (const float*)c->q, (const HT*)c->k_hist, (const HT*)c->v_hist, c->k_scale, c->v_scale,
+        c->hsb, c->hsh, c->ssb, c->ssh, (const __nv_bfloat16*)c->k_tail,
+        (const __nv_bfloat16*)c->v_tail, c->pos, c->flushed, c->tail_pos, (float*)c->out, c->H,
+        c->n_kv, c->lim, c->W);
+  return (int)cudaGetLastError();
+}
+
 int dispatch(const Call* c, int dtype, int hist, int hd, int G) {
   if (dtype == 1 && hist == 1) return by_shape<__nv_bfloat16, int8_t, true, 1, 1>(c, hd, G);
   if (dtype == 1 && hist == 0) return by_shape<__nv_bfloat16, __nv_bfloat16, false, 1, 0>(c, hd, G);
   if (dtype == 0 && hist == 1) return by_shape<float, int8_t, true, 0, 1>(c, hd, G);
   if (dtype == 0 && hist == 0) return by_shape<float, float, false, 0, 0>(c, hd, G);
+  if (c == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && hist == 2) return launch_bf16_tail<__nv_bfloat16, false>(c);
+  if (dtype == 0 && hist == 3) return launch_bf16_tail<int8_t, true>(c);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -475,7 +627,8 @@ extern "C" int smoltts_decode_attention_setup() {
 }
 
 // dtype: 0 = f32, 1 = bf16 (q, tail, out). hist: 0 = same as dtype, 1 = int8
-// with f32 scales.
+// with f32 scales; under f32 compute also 2 = bf16 history and tail, 3 = int8
+// history and a bf16 tail (decode_attn_bf16_tail_kernel).
 extern "C" int smoltts_decode_attention(const void* q, const void* k_hist, const void* v_hist,
                                         const float* k_scale, const float* v_scale,
                                         long long hsb, long long hsh, long long ssb,

@@ -64,11 +64,6 @@ struct Params {
   int* out;
 };
 
-__device__ __forceinline__ float gumbel_word(uint32_t w) {
-  const float u = ((float)(w >> 9) + 0.5f) * (1.0f / 8388608.0f);
-  return -logf(-logf(u));
-}
-
 // (score, column) as one 64-bit key whose unsigned order is the argmax
 // order: the larger score, then the lower column. NaN gives 0, which every
 // candidate beats; -0 counts as +0 (they tie, as in torch.argmax).

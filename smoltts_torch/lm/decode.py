@@ -307,3 +307,18 @@ def decode_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, settings,
     )
     return new_state, out
 
+
+def make_decode_fns(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings):
+    """(prefill_fn, decode_fn) closures over the config, as `FrameGenerator`
+    takes them: prefill_fn(params, state, prompt, prompt_len, generator) and
+    decode_fn(params, state, generator), each -> (state', FrameOutput)."""
+
+    @torch.no_grad()
+    def prefill_fn(params, state, prompt, prompt_len, generator):
+        return prefill(params, cfg, token_cfg, settings, state, prompt, prompt_len, generator)
+
+    @torch.no_grad()
+    def decode_fn(params, state, generator):
+        return decode_frame(params, cfg, token_cfg, settings, state, generator)
+
+    return prefill_fn, decode_fn

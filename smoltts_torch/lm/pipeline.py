@@ -1,8 +1,10 @@
 """Serving pipeline: one LM frame step followed by the Mimi vocoder step.
 
 `make_prefill_step` (prompt -> first frame -> first PCM chunk),
-`make_stream_step` (one frame -> 1920 PCM samples per stream) and
-`make_flush_step` (consolidate the LM and codec ring tails) return plain
+`make_stream_step` (one frame -> 1920 PCM samples per stream),
+`make_chunk_step` (K frames -> K * 1920 samples per stream per call, the
+throughput mode) and `make_flush_step` (consolidate the LM and codec ring
+tails) return plain
 callables with the JAX package's signatures: state in, state out, with the
 generator in the place of the PRNG key. Large buffers are updated in place
 (see lm/decode.py), so a state passed to a step must not be reused.
@@ -25,8 +27,8 @@ from smoltts_torch.tokenizer import TokenConfig
 
 class StreamStepOutput(NamedTuple):
     pcm: torch.Tensor  # [B, samples, 1]
-    audio_codes: torch.Tensor  # [B, ncb]
-    is_audio: torch.Tensor  # [B]
+    audio_codes: torch.Tensor  # [B, ncb] ([B, ncb, K] chunked)
+    is_audio: torch.Tensor  # [B] ([B, K] chunked)
     finished: torch.Tensor  # [B]
 
 
@@ -64,6 +66,36 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
                                            out.audio_codes[:, :, None])
         return state, mimi_state, generator, StreamStepOutput(
             pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio, finished=out.finished
+        )
+
+    return step
+
+
+def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
+                    mimi_cfg: MimiConfig, frames_per_chunk: int,
+                    attend_limit: Optional[int] = None, device=None):
+    """(lm_params, mimi_params, state, mimi_state, generator) ->
+    (state', mimi_state', generator, StreamStepOutput) over K =
+    `frames_per_chunk` frames: PCM [B, K * 1920, 1], codes [B, ncb, K],
+    is_audio [B, K]. With `attend_limit` the caller guarantees max(pos) + K
+    <= attend_limit, and flushes between calls so the K frames fit the
+    tails."""
+    resolve_device(device)
+
+    @torch.no_grad()
+    def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
+        pcm, codes, is_audio = [], [], []
+        for _ in range(frames_per_chunk):
+            state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
+                                      attend_limit=attend_limit)
+            mimi_state, p = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
+                                             out.audio_codes[:, :, None])
+            pcm.append(p)
+            codes.append(out.audio_codes)
+            is_audio.append(out.is_audio)
+        return state, mimi_state, generator, StreamStepOutput(
+            pcm=torch.cat(pcm, dim=1), audio_codes=torch.stack(codes, dim=-1),
+            is_audio=torch.stack(is_audio, dim=-1), finished=state.finished,
         )
 
     return step

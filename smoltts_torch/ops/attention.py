@@ -96,7 +96,11 @@ def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, 
     _require(q.dtype in _DTYPE_CODE, f"q dtype {q.dtype}")
     kv8 = k_scale is not None
     _require(kv8 == (v_scale is not None), "k_scale and v_scale come together")
-    hist_dtype = torch.int8 if kv8 else q.dtype
+    # the storage dtype (tail, same-dtype history): q's, or bf16 under f32 q
+    store = k_tail.dtype
+    _require(store == q.dtype or (q.dtype == torch.float32 and store == torch.bfloat16),
+             f"tail dtype {store} under {q.dtype} compute")
+    hist_dtype = torch.int8 if kv8 else store
     for name, t in (("k_hist", k_hist), ("v_hist", v_hist)):
         _require(t.dtype == hist_dtype, f"{name} dtype {t.dtype}, expected {hist_dtype}")
         _require(t.device == dev, f"{name} on {t.device}")
@@ -105,8 +109,8 @@ def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, 
                  and (t.stride(1) * t.element_size()) % 16 == 0, f"{name} not 16-byte aligned")
     _require(k_hist.stride() == v_hist.stride(), "k_hist and v_hist strides differ")
     for name, t in (("k_tail", k_tail), ("v_tail", v_tail)):
-        _require(t.dtype == q.dtype and t.is_contiguous() and t.device == dev,
-                 f"{name} must be contiguous {q.dtype} on {dev}")
+        _require(t.dtype == store and t.is_contiguous() and t.device == dev,
+                 f"{name} must be contiguous {store} on {dev}")
         _require(t.shape == (B, n_kv, W, hd), f"{name} shape {tuple(t.shape)}")
         _require(t.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
     _require(W <= 1024, f"tail length {W} above 1024")
@@ -135,7 +139,8 @@ def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, 
         k_hist.stride(0), k_hist.stride(1), ssb, ssh,
         k_tail.data_ptr(), v_tail.data_ptr(),
         pos.data_ptr(), flushed.data_ptr(), tail_pos.data_ptr(), out.data_ptr(),
-        B, H, n_kv, hd, lim, W, _DTYPE_CODE[q.dtype], 1 if kv8 else 0,
+        B, H, n_kv, hd, lim, W, _DTYPE_CODE[q.dtype],
+        (1 if kv8 else 0) + (0 if store == q.dtype else 2),
         _build.stream_ptr(dev),
     )
     _build.check(code, "decode_attention")
@@ -163,7 +168,8 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None) -> torch.Tensor:
         return decode_attention_plain(q, k, v, pos, k_scale, v_scale)
     B, H, hd = q.shape
     n_kv = k.shape[1]
-    empty = torch.empty((B, n_kv, 0, hd), dtype=q.dtype, device=q.device)
+    store = q.dtype if k.dtype == torch.int8 else k.dtype
+    empty = torch.empty((B, n_kv, 0, hd), dtype=store, device=q.device)
     pos32 = pos.to(torch.int32).contiguous()
     no_tail = torch.empty((B, 0), dtype=torch.int32, device=q.device)
     return _kernel(q, k, v, empty, empty, pos32, pos32 + 1, no_tail, k_scale, v_scale)

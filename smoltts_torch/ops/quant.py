@@ -39,7 +39,8 @@ def dequantize(w: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 def mm(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """x @ w for plain or int8-quantized weights (a plain large product, as
-    the JAX package leaves it to XLA)."""
+    the JAX package leaves it to XLA). Plain operands of two float dtypes
+    meet in the wider one, as jnp.matmul promotes them."""
     if isinstance(w, QTensor):
         if any(d != 1 for d in w.scale.shape[:-1]):
             raise ValueError(
@@ -48,6 +49,9 @@ def mm(x: torch.Tensor, w: Weight) -> torch.Tensor:
             )
         y = x @ w.q.to(x.dtype)
         return y * w.scale.reshape(w.scale.shape[-1]).to(y.dtype)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     return x @ w
 
 

@@ -1,14 +1,17 @@
 """PyTorch port, package rules: the port, chip_smoke.py and the port's
-scripts import neither JAX nor the JAX package, importing the port builds
-nothing, and every entry point refuses to fall back to the CPU when no
-device is named."""
+scripts import neither JAX nor the JAX package, nor the packages the card's
+machine lacks; importing the port builds nothing; every entry point refuses
+to fall back to the CPU when no device is named; and the CUDA sources share
+one word-to-Gumbel mapping."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,18 +21,22 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
     for p in PKG.rglob("*.py")
 )
+# JAX and the JAX package, then packages the card's machine does not have
+BLOCKED = ("jax", "jaxlib", "smoltts_tpu", "safetensors", "tokenizers", "pydantic", "ml_dtypes",
+           "transformers")
 
 
 def test_imports_without_jax_in_a_fresh_interpreter():
     code = (
         "import sys, py_compile\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['smoltts_tpu'] = None\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        "from smoltts_torch import SmolTTS\n"
         f"py_compile.compile({str(ROOT / 'chip_smoke.py')!r}, doraise=True, cfile=None)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'smoltts_tpu')"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "from smoltts_torch.ops import _build\n"
@@ -59,16 +66,21 @@ def _imports(path: Path):
                                                               ROOT / "scripts" / "torch_k3_threads.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_static_scan_has_no_jax_imports(path):
-    bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "smoltts_tpu")]
+    bad = [m for m in _imports(path) if m.split(".")[0] in BLOCKED]
     assert not bad, f"{path}: {bad}"
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from smoltts_torch import SmolTTS
     from smoltts_torch.codec.config import MimiConfig
-    from smoltts_torch.codec.mimi import decode_stream_init, init_mimi_params
+    from smoltts_torch.codec.mimi import decode_stream_init, init_mimi_params, load_mimi
     from smoltts_torch.config import tiny_debug_config
+    from smoltts_torch.io.checkpoint import load_params
     from smoltts_torch.lm.decode import init_decode_state
-    from smoltts_torch.lm.pipeline import make_flush_step, make_prefill_step, make_stream_step
+    from smoltts_torch.lm.generate import generate_blocking, make_device_generator
+    from smoltts_torch.lm.pipeline import (
+        make_chunk_step, make_flush_step, make_prefill_step, make_stream_step,
+    )
     from smoltts_torch.lm.samplers import GenerationSettings
     from smoltts_torch.models.dual_ar import init_params
     from smoltts_torch.tokenizer import TokenConfig
@@ -84,9 +96,44 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: make_prefill_step(cfg, tok, settings, mcfg),
         lambda: make_stream_step(cfg, tok, settings, mcfg),
         lambda: make_flush_step(),
+        lambda: make_chunk_step(cfg, tok, settings, mcfg, 8),
+        lambda: make_device_generator(cfg, tok, settings, 8),
+        lambda: generate_blocking({}, cfg, tok, settings, [np.zeros((cfg.num_rows, 4), np.int32)]),
+        # no file is read before the device check
+        lambda: SmolTTS(tmp_path / "missing"),
+        lambda: load_params(tmp_path / "missing", cfg),
+        lambda: load_mimi(tmp_path / "missing.safetensors"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # an explicit CPU device is honoured
     assert init_decode_state(cfg, 1, 16, device="cpu").k.device.type == "cpu"
+
+
+def test_one_word_to_gumbel_mapping():
+    """K1's gumbel() and K3's sampler both map a Philox word to noise through
+    common.cuh's gumbel_word, the top 23 bits at their bin centres. The old
+    24-bit mapping gave u = 1 (and +inf noise) in its last bin."""
+    csrc = PKG / "csrc"
+    common = (csrc / "common.cuh").read_text()
+    sampling = (csrc / "sampling.cu").read_text()
+    fast_loop = (csrc / "fast_loop.cu").read_text()
+    defs = re.findall(r"float\s+gumbel_word\s*\(", common + sampling + fast_loop)
+    assert len(defs) == 1 and re.search(r"float\s+gumbel_word\s*\(", common)
+    assert "((float)(w >> 9) + 0.5f) * (1.0f / 8388608.0f)" in common
+    body = common[common.index("float gumbel(") :]
+    assert "return gumbel_word(r.x);" in body[: body.index("\n}")]
+    assert "gumbel_word(" in sampling and "gumbel(seed" in fast_loop
+    for src in (common, sampling, fast_loop):
+        assert ">> 8)" not in src and "16777216" not in src
+
+    w = np.uint32(0xFFFFFFFF)
+    old = (np.float32(w >> np.uint32(8)) + np.float32(0.5)) * np.float32(1.0 / 16777216.0)
+    new = (np.float32(w >> np.uint32(9)) + np.float32(0.5)) * np.float32(1.0 / 8388608.0)
+    assert old == np.float32(1.0)
+    assert np.float32(0.0) < new < np.float32(1.0)
+    words = np.array([0, 511, 512, 0x80000000, 0xFFFFFE00, 0xFFFFFFFF], np.uint32)
+    u = ((words >> np.uint32(9)).astype(np.float32) + np.float32(0.5)) * np.float32(1.0 / 8388608.0)
+    assert u.dtype == np.float32 and (u > 0).all() and (u < 1).all()
+    assert np.isfinite(-np.log(-np.log(u))).all()
