@@ -8,11 +8,14 @@ hand-written CUDA kernel against its plain PyTorch version.
 Phases:
   0  card name and power limit; require CUDA; TF32 off for matmul and cuDNN
   1  build the kernels (nvcc into build/smoltts_torch/) and time the build
+  1  also: registers and spills of every kernel variant (ptxas -v)
   2  decode attention (K2) vs its plain version: the main path's shapes,
      lim 256/1024/2048, kv8 and same-dtype histories, bf16 and f32, ragged
      B=1 and 7, edge rows, the 70M heads, hd 128 with G=8, the contiguous
-     form; device and wall time per call, warm and cold (rotating over 10
-     layer-sized caches), at lim 256 and 2048, beside SDPA
+     form; a tail of 2048 columns, a group of 12, hd 32 and 96, f32 over a
+     bf16 cache, each timed; device and wall time per call, warm and cold
+     (rotating over 10 layer-sized caches), at lim 256 and 2048, beside
+     SDPA; make_device_generator at B=1 for 1100 frames with a tail of 1152
   3  fast micro-loop (K1) vs its plain version at 150M widths: B=64, the
      ragged row counts 1, 7, 65, 130, and 8192 sampled draws; 70M widths at
      B=64; identical codes
@@ -38,6 +41,13 @@ Phases:
      all-plain path for generate_blocking, __call__ and stream; the chunk
      step at B=64, chunk 8, bucket 256 beside phase 5's streaming rate, and
      chunk-step codes == stream-step codes greedy at B=4 in f32
+  8  the continuous-batching engine (DecodeEngine, EngineLoop): greedy f32
+     at 8 slots with 12 prompts in three waves, codes == the B=1 single-
+     stream pipeline and PCM within 1e-3, chunked == single-frame, int16 and
+     ulaw frames == the host encoders; then bench.py's served operating
+     point (64 slots, 128 streams closed-loop, int8+kv8, chunk 8) with
+     audio-s/s, first-audio percentiles, the pop_timing breakdown and
+     K1-K3 launches per frame step
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -50,6 +60,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -210,6 +221,36 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report(text: str):
+    """[(kernel, registers, stack bytes, spill store bytes, spill load bytes)]
+    from nvcc's `-Xptxas -v` output, names demangled by cu++filt where the
+    toolkit has it."""
+    rows, current, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+            rows.setdefault(current, [0, 0, 0, 0])
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props in rows:
+            rows[props][1:] = [int(g) for g in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current in rows:
+            rows[current][0] = int(m.group(1))
+    names = list(rows)
+    try:
+        filt = Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc").parent / "cu++filt"
+        out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True,
+                             timeout=30).stdout.splitlines()
+        pretty = out if len(out) == len(names) else names
+    except (OSError, subprocess.SubprocessError):
+        pretty = names
+    return [(p, *rows[n]) for p, n in zip(pretty, names)]
+
+
 def tv_gate(p: np.ndarray, n: int, seed: int, reps: int = 200) -> float:
     """1.2 x the 99.9th percentile of the total-variation distance between p
     and the histogram of n exact draws from p (the sampling noise alone)."""
@@ -352,9 +393,22 @@ class Smoke:
         from smoltts_torch.ops import _build
 
         t0 = time.perf_counter()
-        _build.lib(verbose=True)
+        _build.lib()
         log(f"[1 build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
             f"(nvcc wall {_build.BUILD_SECONDS})")
+        if not _build.BUILD_LOGS:
+            return
+        full = _build.BUILD_DIR / "nvcc.log"
+        full.write_text("\n".join(f"[nvcc {k}]\n{v}" for k, v in _build.BUILD_LOGS.items()))
+        for src, text in sorted(_build.BUILD_LOGS.items()):
+            rows = ptxas_report(text)
+            spilling = [r for r in rows if r[3] or r[4]]
+            log(f"[1 build] {src}: nvcc {_build.BUILD_TIMES.get(src)} s, {len(rows)} kernels, "
+                f"{len(spilling)} with register spills (ptxas -v; full log "
+                f"{full.relative_to(ROOT)})")
+            for name, regs, stack, st, ld in spilling:
+                log(f"[1 build]   spills {st} B stored / {ld} B loaded, {regs} registers, "
+                    f"{stack} B stack: {name[:160]}")
 
     def _k2_case(self, B, H, KV, hd, S, lim, W, kv8, dtype, seed, copies=1, store=None):
         """Inputs of one tailed K2 call: the history as the decode step passes
@@ -478,6 +532,7 @@ class Smoke:
             extra = f", {int(((got - want).abs() > 1e-5).sum())} of {got.numel()} above 1e-5" if store else ""
             log(f"[2 K2] {label}: B={B} H={H}/{KV} hd={hd} lim={lim} W={W}: max_abs_err {err:.3e} "
                 f"(gate {K2_GATE if gate == bf16 else K2_F32_GATE}){extra}")
+        self._k2_wide_shapes(worst)
         for dtype in (bf16, f32):  # contiguous form (W = 0, flushed = pos + 1)
             g = torch.Generator(device=dev).manual_seed(5)
             kc, vc = (torch.randn((64, 4, 256, 64), generator=g, device=dev).to(dtype) for _ in "kv")
@@ -530,6 +585,85 @@ class Smoke:
         self.record("decode_attention", source="smoltts_torch/csrc/decode_attention.cu",
                     replaces="smoltts_tpu/ops/attention.py:53",
                     max_abs_err=max(worst.values()), **rec)
+        self._long_device_generator()
+
+    def _k2_wide_shapes(self, worst):
+        """Shapes past the tuned kernel's first limits, all served in-kernel:
+        a tail of 2048 columns (valid columns on both sides of 1024, the
+        old limit), a group of 12 over one kv head (two group tiles),
+        head_dim 32 (a tuned template) and 96 (the generic kernel), in bf16
+        and f32 over kv8 and same-dtype histories; then f32 compute over a
+        bf16 cache (the generic kernel's rounding mode) at these shapes and
+        at the blocking generator's. Each against the plain version, with
+        device ms per call beside the plain version's."""
+        from smoltts_torch.ops import attention as A
+
+        torch = self.torch
+        bf16, f32 = torch.bfloat16, torch.float32
+        shapes = [("W=2048", 8, 12, 4, 64, 4096, 4096, 2048),
+                  ("G=12 over 1 kv head", 8, 12, 1, 64, 1024, 256, 128),
+                  ("hd 32", 8, 12, 4, 32, 1024, 256, 128),
+                  ("hd 32 heads 2/1 (tiny_debug_config)", 8, 2, 1, 32, 1024, 256, 128),
+                  ("hd 96", 8, 12, 4, 96, 1024, 256, 128),
+                  ("hd 96 G=12 W=2048", 8, 12, 1, 96, 4096, 4096, 2048)]
+        cases = [(label, sh, dtype, kv8, None) for label, *sh in shapes
+                 for dtype in (bf16, f32) for kv8 in (True, False)]
+        cases += [(f"f32 over bf16 cache, {label}", sh, f32, kv8, bf16)
+                  for label, *sh in (shapes[0], shapes[5],
+                                     ("B=1 lim 2048 (blocking generator)", 1, 12, 4, 64, 2048, 2048, 128),
+                                     ("B=64 lim 256", 64, 12, 4, 64, 1024, 256, 128))
+                  for kv8 in (False, True)]
+        for i, (label, (B, H, KV, hd, S, lim, W), dtype, kv8, store) in enumerate(cases):
+            (args,), ref, (fl, ps, tp) = self._k2_case(B, H, KV, hd, S, lim, W, kv8, dtype,
+                                                       seed=200 + i, store=store)
+            ok = (tp >= fl[:, None]) & (tp <= ps[:, None]) & (tp >= 0)
+            sides = ""
+            if W > 1024:
+                both = int((ok[:, :1024].any(1) & ok[:, 1024:].any(1)).sum())
+                check(both > 0, f"K2 {label}: no row with valid columns on both sides of 1024")
+                sides = f", {both} of {B} rows with valid columns on both sides of 1024"
+            got = A.decode_attention_tailed(**args)
+            want = A.decode_attention_tailed_plain(**(args if store else ref))
+            err = (got.float() - want).abs().max().item()
+            gate = bf16 if store else dtype
+            worst[gate] = max(worst[gate], err)
+            ms = device_ms(lambda: A.decode_attention_tailed(**args), iters=20)
+            plain_ms = device_ms(lambda: A.decode_attention_tailed_plain(**args), iters=5)
+            log(f"[2 K2] {label}, {str(dtype)[6:]} {'kv8' if kv8 else 'same-dtype'} history: "
+                f"B={B} H={H}/{KV} hd={hd} lim={lim} W={W}, {A.kernel_plan(**args).route} kernel: "
+                f"max_abs_err {err:.3e} (gate {K2_GATE if gate == bf16 else K2_F32_GATE}){sides}; "
+                f"device ms per call {ms}, plain {plain_ms}")
+
+    def _long_device_generator(self):
+        """make_device_generator at B=1 for 1100 frames with a tail of 1152
+        columns and no flush: K2 compacts tails of more than 1024 columns."""
+        from smoltts_torch import ops
+        from smoltts_torch.lm.decode import init_decode_state
+        from smoltts_torch.lm.generate import make_device_generator
+        from smoltts_torch.lm.samplers import GenerationSettings
+
+        torch, dev = self.torch, self.dev
+        cfg, params, _, _ = self.lm()
+        token_cfg, prompt, lens = self._prompts(cfg, 1, 64)
+        N, W = 1100, 1152
+        settings = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05)
+        run = make_device_generator(cfg, token_cfg, settings, N, device=dev)
+        state = init_decode_state(cfg, 1, cfg.max_seq_len, dtype=torch.int8, tail_len=W, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes, valid, _ = run(params, state, torch.from_numpy(prompt).to(dev),
+                              torch.from_numpy(lens).to(dev), gen)
+        codes = codes.cpu()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        check(tuple(codes.shape) == (1, cfg.num_codebooks, N), f"device generator codes {tuple(codes.shape)}")
+        check(0 <= int(codes.min()) and int(codes.max()) < cfg.codebook_size, "codes out of range")
+        check(counts["decode_attention"] == cfg.n_layer * (N - 1), f"K2 launches {counts}")
+        log(f"[2 K2] make_device_generator 150M int8+kv8 B=1, {N} frames, tail {W} (S "
+            f"{cfg.max_seq_len}): ran to the end in {wall:.2f} s ({N / wall:.1f} frames/s), "
+            f"{int(valid.sum())} audio frames; launches {counts}")
 
     def _fast_f32_tree(self, params):
         tree = dict(params)
@@ -1320,6 +1454,234 @@ class Smoke:
             f"{equal}, PCM max abs diff {pcm_err:.3e}")
         check(equal, "chunk-step codes differ from stream-step codes")
 
+    # ---- phase 8: the continuous-batching engine ---------------------------
+
+    def phase8_engine(self):
+        t0 = time.perf_counter()
+        smi = nvidia_smi()
+        self._engine_parity(smi)
+        self._engine_served(smi)
+        log(f"[8 engine] phase 8 took {time.perf_counter() - t0:.1f} s on {smi}")
+
+    def _engine_parity(self, smi):
+        """Greedy f32 (int8 weights, kernel path), B=8 slots, S=1024, Mimi
+        attached, 12 prompts submitted in three waves with budgets of 8-24
+        frames: each stream's codes equal the same prompt run alone through
+        make_prefill_step + make_stream_step at B=1, its PCM within 1e-3;
+        chunked dispatch (8) gives the same codes; int16 and ulaw frames equal
+        the host encoders applied to the f32 frames of the same schedule."""
+        from smoltts_torch.codec.mimi import decode_stream_init
+        from smoltts_torch.io.g711 import ulaw_encode_np
+        from smoltts_torch.lm.decode import init_decode_state
+        from smoltts_torch.lm.engine import DecodeEngine
+        from smoltts_torch.lm.generate import pad_prompts
+        from smoltts_torch.lm.pipeline import (
+            flush_cadence, make_flush_step, make_prefill_step, make_stream_step,
+        )
+        from smoltts_torch.lm.samplers import GenerationSettings
+
+        torch, dev = self.torch, self.dev
+        cfg, _, mcfg, _ = self.lm()
+        params, mimi = self._f32_trees()
+        greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
+        token_cfg, padded, lens = self._prompts(cfg, 12, 64)
+        prompts = [padded[i, :, : lens[i]] for i in range(12)]
+        budgets = [int(b) for b in np.random.default_rng(8).integers(8, 25, 12)]
+        S, bucket = 1024, 256
+        waves = {0: range(0, 6), 4: range(6, 9), 10: range(9, 12)}  # step -> prompts
+        t0 = time.perf_counter()
+
+        def single(p, n):
+            state = init_decode_state(cfg, 1, S, dtype=torch.float32, device=dev)
+            ms = decode_stream_init(mcfg, 1, dtype=torch.float32, device=dev)
+            prefill = make_prefill_step(cfg, token_cfg, greedy, mcfg, device=dev)
+            step = make_stream_step(cfg, token_cfg, greedy, mcfg, attend_limit=bucket, device=dev)
+            flush, cadence = make_flush_step(device=dev), flush_cadence(state, ms)
+            pp, ll = pad_prompts([p], pad_to_multiple=64)
+            state, ms, _, o = prefill(params, mimi, state, ms, torch.from_numpy(pp).to(dev),
+                                      torch.from_numpy(ll).to(dev), None)
+            outs, since = [o], 0
+            for _ in range(n - 1):
+                if since >= cadence:
+                    (state, ms), since = flush(state, ms), 0
+                state, ms, _, o = step(params, mimi, state, ms, None)
+                since += 1
+                outs.append(o)
+            return (torch.stack([o.audio_codes[0] for o in outs]).cpu().numpy(),
+                    torch.stack([o.pcm[0, :, 0] for o in outs]).cpu().numpy())
+
+        refs = [single(p, n) for p, n in zip(prompts, budgets)]
+        t_single = time.perf_counter() - t0
+
+        def engine_run(chunk, emit):
+            eng = DecodeEngine(params, cfg, token_cfg, greedy, num_slots=8, max_seq_len=S,
+                               kv_dtype=torch.float32, prompt_bucket=64, mimi_params=mimi,
+                               mimi_cfg=mcfg, attend_buckets=[bucket], chunk_frames=chunk,
+                               emit_format=emit, device=dev)
+            eng.warm()
+            sid_of, got = {}, {}
+            for step in range(1000):
+                for i in waves.get(step, ()):
+                    sid_of[i] = eng.submit(prompts[i], max_frames=budgets[i])
+                    got[sid_of[i]] = []
+                for sid, frame in eng.step():
+                    got[sid].append(frame)
+                if step > max(waves) and not eng.has_work():
+                    break
+            check(not eng.has_work(), "engine did not drain")
+            return [got[sid_of[i]] for i in range(12)], eng.stats
+
+        torch.backends.cudnn.deterministic = True  # int16/ulaw frames vs the f32 run's
+        try:
+            runs = {key: engine_run(*key) for key in ((1, "f32"), (8, "f32"), (1, "int16"), (1, "ulaw"))}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        base = runs[(1, "f32")][0]
+        bad, pcm_err = [], 0.0
+        for key in ((1, "f32"), (8, "f32")):
+            for i, (frames, (rc, rp)) in enumerate(zip(runs[key][0], refs)):
+                codes = np.stack([f["audio_codes"] for f in frames]) if frames else None
+                if codes is None or codes.shape != rc.shape or not np.array_equal(codes, rc):
+                    bad.append((key, i))
+                    continue
+                pcm = np.stack([f["pcm"] for f in frames])
+                pcm_err = max(pcm_err, float(np.abs(pcm - rp).max()))
+        enc_bad = 0
+        for i, frames in enumerate(base):
+            for f32f, i16, ul in zip(frames, runs[(1, "int16")][0][i], runs[(1, "ulaw")][0][i]):
+                a = f32f["pcm"]
+                enc_bad += int(not np.array_equal(i16["pcm"], (np.clip(a, -1, 1) * 32767.0).astype(np.int16)))
+                enc_bad += int(not np.array_equal(ul["pcm"], ulaw_encode_np(
+                    np.round(np.clip(a.astype(np.float64), -1, 1) * 32767).astype(np.int16))))
+        log(f"[8 engine] parity on {smi}: 150M f32 int8 greedy, 8 slots S={S} bucket {bucket}, 12 "
+            f"prompts in 3 waves, budgets {budgets}: streams whose codes differ from the B=1 "
+            f"single-stream pipeline {bad} (chunk 1 and chunk 8), PCM max abs diff {pcm_err:.3e} "
+            f"(gate 1e-3); int16/ulaw frames differing from the host encoders of the f32 frames: "
+            f"{enc_bad}; stats chunk 1 {runs[(1, 'f32')][1]}, chunk 8 {runs[(8, 'f32')][1]}; "
+            f"{time.perf_counter() - t0:.1f} s ({t_single:.1f} s of it the references)")
+        check(not bad and pcm_err <= 1e-3 and enc_bad == 0, "engine differs from the single stream")
+
+    def _engine_served(self, smi):
+        """bench.py::run_served's operating point on the port: 150M int8+kv8,
+        temp 0.7 / 0.7 / min-p 0.05, 64 slots, S=1024, prompt bucket 64,
+        inflight 1, fetch_every 1, chunk 8, admit sizes [1, 4], bucket 256,
+        int16 frames, EngineLoop(max_ahead=2, fetchers=3); closed loop with 64
+        streams in flight and 128 in all, budgets uniform in [60, 180] frames
+        from default_rng(7); a shakedown of 8 / 16 / 24 first, then 2 reps.
+        Launch counts per dispatched frame are read around each rep."""
+        import queue as _queue
+        import threading
+
+        from smoltts_torch import ops
+        from smoltts_torch.lm.engine import DecodeEngine, EngineLoop
+        from smoltts_torch.lm.samplers import GenerationSettings
+
+        torch, dev = self.torch, self.dev
+        cfg, params, mcfg, mimi = self.lm()
+        token_cfg, prompt, lens = self._prompts(cfg, 1, 64)
+        prompt_np = prompt[0, :, : lens[0]]
+        settings = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05)
+        B, frames_per_stream = 64, 120
+        t0 = time.perf_counter()
+        eng = DecodeEngine(params, cfg, token_cfg, settings, num_slots=B, max_seq_len=1024,
+                           kv_dtype=torch.int8, prompt_bucket=64, mimi_params=mimi, mimi_cfg=mcfg,
+                           inflight=1, fetch_every=1, emit_format="int16", chunk_frames=8,
+                           admit_sizes=[1, 4], attend_buckets=[256],
+                           generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+        eng.warm()
+        t_warm = time.perf_counter() - t0
+        loop = EngineLoop(eng, max_ahead=2, fetchers=3)
+
+        def pct(vals, p):
+            vals = sorted(vals)
+            return vals[min(len(vals) - 1, int(p * len(vals)))]
+
+        def run_served(n_streams, total, frames):
+            lock = threading.Lock()
+            lats, done, failures = [], [0, 0, 0], []  # frames, launched, completed
+            all_done = threading.Event()
+            len_rng = np.random.default_rng(7)
+
+            def consume(q, t_submit, steady):
+                n, first, timing = 0, None, None
+                while True:
+                    try:
+                        frame = q.get(timeout=60)
+                    except _queue.Empty:
+                        failures.append(f"stream {q.sid}: no frame for 60 s after {n}")
+                        all_done.set()
+                        return
+                    if frame is None:
+                        break
+                    if first is None and "pcm" in frame:
+                        first = time.perf_counter() - t_submit
+                        timing = eng.pop_timing(q.sid)
+                    if frame["pcm"].dtype != np.int16 or frame["pcm"].shape != (mcfg.samples_per_frame,):
+                        failures.append(f"stream {q.sid}: pcm {frame['pcm'].dtype} {frame['pcm'].shape}")
+                    n += 1
+                launch_next = False
+                with lock:
+                    done[0] += n
+                    if first is not None:
+                        lats.append((steady, first * 1e3, timing))
+                    done[2] += 1
+                    if done[1] < total:
+                        done[1] += 1
+                        launch_next = True
+                    elif done[2] >= total:
+                        all_done.set()
+                if launch_next:
+                    start_one(True)
+
+            def start_one(steady):
+                budget = int(len_rng.integers(frames // 2, frames * 3 // 2 + 1))
+                t_submit = time.perf_counter()
+                q = loop.submit(prompt_np, max_frames=budget)
+                threading.Thread(target=consume, args=(q, t_submit, steady), daemon=True).start()
+
+            t_start = time.perf_counter()
+            with lock:
+                done[1] = n_streams
+            for _ in range(n_streams):
+                start_one(False)
+            check(all_done.wait(timeout=300), f"served run wedged: {done}, queue {len(eng._queue)}")
+            check(not failures, f"served run: {failures[:3]}")
+            elapsed = time.perf_counter() - t_start
+            all_ms = [ms for _, ms, _ in lats]
+            steady_ms = [ms for s, ms, _ in lats if s] or all_ms
+            timings = [t for s, _, t in lats if s and t] or [t for _, _, t in lats if t]
+            breakdown = {ph: {"p50": pct([t[ph] * 1e3 for t in timings], 0.5),
+                              "p95": pct([t[ph] * 1e3 for t in timings], 0.95)}
+                         for ph in ("queue_wait", "dispatch_wait", "fetch", "deliver", "total")}
+            return (done[0] * 0.08 / elapsed, pct(all_ms, 0.5), pct(all_ms, 0.95),
+                    pct(steady_ms, 0.5), breakdown, done[0], elapsed)
+
+        try:
+            run_served(8, 16, 24)  # shakedown
+            eng.drain_timings()
+            for rep in range(2):
+                with loop._lock:
+                    ops.reset_launch_counts()
+                    before = dict(eng.stats)
+                out = run_served(B, 2 * B, frames_per_stream)
+                with loop._lock:
+                    counts = dict(ops.LAUNCHES)
+                    steps = eng.stats["frame_steps"] - before["frame_steps"]
+                    admits = eng.stats["admissions"] - before["admissions"]
+                    dispatches = eng.stats["dispatches"] - before["dispatches"]
+                rate, p50, p95, steady, bd, frames, elapsed = out
+                per = {k: round(v / steps, 4) for k, v in counts.items()}
+                log(f"[8 served] rep {rep} on {smi}: {rate} audio-s/s ({frames} frames in "
+                    f"{elapsed:.2f} s), first audio p50 {p50:.1f} ms, p95 {p95:.1f} ms, steady p50 "
+                    f"{steady:.1f} ms; pop_timing ms {json.dumps(bd)}; {dispatches} dispatches, "
+                    f"{steps} frame steps, {admits} admissions; launches {counts}, per frame step {per}")
+                expect = {"fast_loop": steps + admits, "sample_categorical": steps + admits,
+                          "decode_attention": cfg.n_layer * steps}
+                check(counts == expect, f"served launches {counts}, expected {expect}")
+        finally:
+            loop.stop()
+        log(f"[8 served] warm {t_warm:.1f} s; served segment {time.perf_counter() - t0:.1f} s")
+
     def _f32_trees(self):
         """Phase 6's trees: 150M f32 int8 LM and the Mimi f32 int8 tree."""
         from smoltts_torch.codec.mimi import init_mimi_params
@@ -1341,7 +1703,7 @@ class Smoke:
         table = [
             (1, self.phase1_build), (2, self.phase2_attention), (3, self.phase3_fast_loop),
             (4, self.phase4_sampler), (5, self.phase5_main_path), (6, self.phase6_greedy_e2e),
-            (7, self.phase7_library),
+            (7, self.phase7_library), (8, self.phase8_engine),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

@@ -291,6 +291,52 @@ def decode_stream_init(cfg: MimiConfig, batch: int, dtype=torch.float32, tail_le
     )
 
 
+def reset_stream_slots(state: MimiStreamState, slots: torch.Tensor) -> MimiStreamState:
+    """Zero the streaming state of the given batch slots (a new stream
+    admitted into a reused decode slot), in place. `slots` is an index tensor
+    on the state's device. The slot axis is 0 for the conv buffers and the
+    ring bookkeeping, 1 for the ring KV; kv8 scales reset to 1.0."""
+    for leaf in _leaves(state.decoder):
+        leaf.index_fill_(0, slots, 0)
+    state.upsample_tail.index_fill_(0, slots, 0)
+    t = state.transformer
+    for a in (t.k, t.v):
+        a.index_fill_(1, slots, 0)
+    t.slot_pos.index_fill_(0, slots, -1)
+    t.tail_abs.index_fill_(0, slots, -1)
+    t.pos.index_fill_(0, slots, 0)
+    for a in (t.k_scale, t.v_scale):
+        if a is not None:
+            a.index_fill_(1, slots, 1.0)
+    return state
+
+
+def scatter_stream_state(big: MimiStreamState, small: MimiStreamState,
+                         slots: torch.Tensor) -> MimiStreamState:
+    """Write an n-slot streaming state into the given slots of a B-slot
+    state, in place on `big`. The small state's ring tail is flushed first
+    (its tail phase may differ from the big state's), so everything it
+    carries lives in its ring, and the scattered slots' tail columns are
+    emptied."""
+    for b, s in zip(_leaves(big.decoder), _leaves(small.decoder)):
+        b.index_copy_(0, slots, s)
+    big.upsample_tail.index_copy_(0, slots, small.upsample_tail)
+    bt, st = big.transformer, flush_transformer_ring(small.transformer)
+    for b, s in ((bt.k, st.k), (bt.v, st.v), (bt.k_scale, st.k_scale), (bt.v_scale, st.v_scale)):
+        if b is not None:
+            b.index_copy_(1, slots, s)
+    bt.slot_pos.index_copy_(0, slots, st.slot_pos)
+    bt.tail_abs.index_fill_(0, slots, -1)
+    bt.pos.index_copy_(0, slots, st.pos)
+    return big
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def flush_mimi_state(state: MimiStreamState) -> MimiStreamState:
     """Consolidate the codec transformer's ring tail (in place)."""
     return state._replace(transformer=flush_transformer_ring(state.transformer))

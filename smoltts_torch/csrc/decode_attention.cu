@@ -1,7 +1,7 @@
 // Single-query GQA decode attention over a split KV cache: a frozen history
 // (int8 with per-vector k/v scales, or the compute dtype) plus a ring tail in
-// the compute dtype; and, at the end of the file, f32 compute over a bf16
-// tail and history.
+// the compute dtype; and, at the end of the file, a kernel for any head_dim
+// that also serves f32 compute over a bf16 tail and history.
 //
 // Replaces the Pallas kernel smoltts_tpu/ops/attention.py::_decode_attn_kernel
 // (launched by decode_attention_pallas) and covers the tailed kv8 contract the
@@ -35,15 +35,21 @@
 //   (warp-uniform) and sum per head, the accumulator rescaled when the max
 //   grows. There is no logits buffer and no block-wide reduction per head.
 // - Only valid rows are read: warp 0 first compacts the tail columns whose
-//   tail_pos lies in [flushed, pos] (one ballot per 32 columns); history
-//   rows at or past min(flushed, lim) are never touched.
+//   tail_pos lies in [flushed, pos] (one ballot per 32 columns) into
+//   dynamic shared memory sized by the tail (4 bytes a column, up to kMaxW
+//   columns); history rows at or past min(flushed, lim) are never touched.
+// - A group of more than GM query heads is cut into tiles of GM heads, one
+//   block (or cluster) per tile over the same K/V rows.
 // - The warps' partial (max, sum, acc[G][hd]) meet in shared memory in warp
 //   order, and the cluster's blocks through distributed shared memory in
 //   rank order, so the result is deterministic.
-// The host picks the split from B, n_kv, lim + W, the SM count and each
-// variant's occupancy, all queried once at load
+// The host picks the split from B, n_kv, the group tiles, lim + W, the SM
+// count and each variant's occupancy, all queried once at load
 // (smoltts_decode_attention_setup); nothing is set per call. All arithmetic
-// is f32; the output is rounded once to the compute dtype.
+// is f32; the output is rounded once to the compute dtype. Head dims 32, 64
+// and 128 take this kernel; any other head_dim, a tail above kMaxW columns,
+// and f32 compute over a bf16 cache take decode_attn_generic_kernel at the
+// end of the file.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -56,13 +62,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kDims = 8;        // head dims a lane owns
-constexpr int kMaxGroup = 8;    // query heads per kv head
-constexpr int kMaxW = 1024;     // tail columns (compacted in shared memory)
+constexpr int kMaxGroup = 8;    // query heads of one block (a group tile)
+constexpr int kMaxW = 32768;    // tail columns (compacted in dynamic shared memory)
 constexpr int kMaxSplits = 8;   // blocks per (row, kv head): a portable cluster
 constexpr int kMinRows = 16;    // a warp's least share of positions after a split
+constexpr int kMaxHd = 8192;    // head_dim of the generic kernel (q of one head in shared memory)
 
 int g_sms = 0;          // SM count, set by smoltts_decode_attention_setup
-int g_occ[2][2][2][2];  // resident blocks per SM: [dtype][hist][hd 128][group > 3]
+int g_occ[2][2][3][2];  // resident blocks per SM: [dtype][hist][hd 64/128/32][group > 3]
 
 // 8 consecutive elements of a row as loaded: 8 bytes of int8, 16 of bf16, 32
 // of f32.
@@ -243,7 +250,8 @@ __device__ __forceinline__ void attend(const E* __restrict__ kb, const E* __rest
   }
 }
 
-// Grid (splits, n_kv, B); a cluster is the `splits` blocks of one (row, kv head).
+// Grid (splits, n_kv * group tiles, B); a cluster is the `splits` blocks of
+// one (row, kv head, group tile).
 template <typename T, typename HT, bool KV8, int HD, int GM>
 __global__ void __launch_bounds__(kThreads, GM <= 4 ? 2 : 1)
 decode_attn_kernel(const T* __restrict__ q, const HT* __restrict__ k_hist,
@@ -254,7 +262,7 @@ decode_attn_kernel(const T* __restrict__ q, const HT* __restrict__ k_hist,
                    const int* __restrict__ tail_pos, T* __restrict__ out, int H, int n_kv,
                    int lim, int W) {
   constexpr int LPR = HD / kDims, PG = GM <= 4 ? 4 : 8;
-  __shared__ int cols[kMaxW];
+  extern __shared__ int cols[];  // [W]: the valid tail columns, compacted
   __shared__ int n_tail;
   // q and the tiles' probabilities while the warps attend, then the warps'
   // partial accumulators.
@@ -269,9 +277,11 @@ decode_attn_kernel(const T* __restrict__ q, const HT* __restrict__ k_hist,
   __shared__ float blk_m[GM], blk_l[GM];
   __shared__ float blk_acc[GM][HD];
 
-  const int split = blockIdx.x, splits = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, splits = gridDim.x, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, sub = lane % LPR;
-  const int G = H / n_kv;
+  // This block's group tile: query heads [g0, g0 + G) of kv head h.
+  const int G_all = H / n_kv, tiles = (G_all + GM - 1) / GM;
+  const int h = blockIdx.y / tiles, g0 = (blockIdx.y % tiles) * GM, G = min(GM, G_all - g0);
   const int p_b = __ldg(pos + b), f_b = __ldg(flushed + b);
   const int n_h = max(0, min(f_b, lim));
 
@@ -299,7 +309,7 @@ decode_attn_kernel(const T* __restrict__ q, const HT* __restrict__ k_hist,
 
   // q in log2 units: scaled by hd^-0.5 and log2(e), so exp2 gives the softmax.
   const float qscale = 1.4426950408889634f / sqrtf((float)HD);
-  const T* qb = q + ((long long)b * H + h * G) * HD;
+  const T* qb = q + ((long long)b * H + h * G_all + g0) * HD;
   for (int i = threadIdx.x; i < G * HD; i += kThreads) sm.a.q[i / HD][i % HD] = to_f(qb[i]) * qscale;
   float m[GM], l[GM], acc[GM][kDims];
 #pragma unroll
@@ -365,7 +375,7 @@ decode_attn_kernel(const T* __restrict__ q, const HT* __restrict__ k_hist,
       A = fmaf(sm.acc[w][g][d], s, A);
     }
     if (splits == 1) {
-      out[((long long)b * H + h * G + g) * HD + d] = from_f<T>(A / L);
+      out[((long long)b * H + h * G_all + g0 + g) * HD + d] = from_f<T>(A / L);
     } else {
       blk_acc[g][d] = A;
       if (d == 0) {
@@ -392,7 +402,7 @@ decode_attn_kernel(const T* __restrict__ q, const HT* __restrict__ k_hist,
       L = fmaf(*cluster.map_shared_rank(&blk_l[g], r), s, L);
       A = fmaf(*cluster.map_shared_rank(&blk_acc[g][d], r), s, A);
     }
-    out[((long long)b * H + h * G + g) * HD + d] = from_f<T>(A / L);
+    out[((long long)b * H + h * G_all + g0 + g) * HD + d] = from_f<T>(A / L);
   }
   cluster.sync();  // no block leaves while another still reads its partial
 }
@@ -408,8 +418,9 @@ struct Call {
   cudaStream_t stream;
 };
 
-// Blocks per (row, kv head): doubled while the grid stays within one wave
-// of resident blocks and every warp keeps at least kMinRows of lim + W.
+// Blocks per (row, kv head, group tile): doubled while the grid stays within
+// one wave of resident blocks and every warp keeps at least kMinRows of
+// lim + W.
 int choose_splits(int pairs, int rows, int resident) {
   int s = 1;
   while (s < kMaxSplits && 2LL * pairs * s <= resident && rows >= 2 * s * kWarps * kMinRows)
@@ -421,18 +432,23 @@ int choose_splits(int pairs, int rows, int resident) {
 template <typename T, typename HT, bool KV8, int HD, int GM>
 int launch(const Call* c, int* occ) {
   const auto kern = decode_attn_kernel<T, HT, KV8, HD, GM>;
-  if (c == nullptr)
+  if (c == nullptr) {  // setup: room for kMaxW compacted columns, and the occupancy
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kMaxW * (int)sizeof(int));
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, kThreads, 0);
-  const int splits = choose_splits(c->B * c->n_kv, c->lim + c->W, g_sms * *occ);
+  }
+  const int tiles = (c->H / c->n_kv + GM - 1) / GM;
+  const int splits = choose_splits(c->B * c->n_kv * tiles, c->lim + c->W, g_sms * *occ);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, c->n_kv, c->B);
+  cfg.gridDim = dim3(splits, c->n_kv * tiles, c->B);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = (size_t)c->W * sizeof(int);
   cfg.stream = c->stream;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;  // an unsplit call is a plain launch
@@ -443,87 +459,113 @@ int launch(const Call* c, int* occ) {
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// hd 32 has one variant (tiles of 8 heads); 64 and 128 one for groups of at
+// most 3 (the main path's 12/4) and one for tiles of 8.
 template <typename T, typename HT, bool KV8, int DT, int HI>
 int by_shape(const Call* c, int hd, int G) {
-  int(&occ)[2][2] = g_occ[DT][HI];
+  int(&occ)[3][2] = g_occ[DT][HI];
+  if (hd == 32) return launch<T, HT, KV8, 32, 8>(c, &occ[2][1]);
   if (hd == 64)
     return G <= 3 ? launch<T, HT, KV8, 64, 3>(c, &occ[0][0]) : launch<T, HT, KV8, 64, 8>(c, &occ[0][1]);
   return G <= 3 ? launch<T, HT, KV8, 128, 3>(c, &occ[1][0]) : launch<T, HT, KV8, 128, 8>(c, &occ[1][1]);
 }
 
-// ---- f32 compute over a bf16 tail (the bf16 cache of an f32 model, which
-// the library's blocking generator keeps). The plain version (as the JAX
-// package) rounds the tail's probabilities to bf16 and sums their product
-// with the bf16 values into a bf16 result; a greedy f32 run that must give
-// the plain path's codes needs the same rounding points, which the online
-// softmax above cannot place (it never holds a normalized probability). So
-// this path takes an exact softmax in three passes over the valid rows, one
-// block per (row, kv head): the max, the sum of exponentials, then the
-// probabilities (the history's in f32, times the value scale with kv8; the
-// tail's rounded to bf16) times the values, the tail's sum rounded to bf16
-// before it joins the history's. Logits are recomputed in each pass. Off the
-// streaming path (which keeps its tail in the compute dtype).
-constexpr int kTile = 32;  // rows whose probabilities one pass-3 step stages
+// ---- Any head_dim, and f32 compute over a bf16 cache. An exact softmax in
+// three passes over the rows of one (row, kv head, group tile), one block of
+// kThreads each: the max, the sum of exponentials, then the probabilities
+// times the values; logits are recomputed in each pass. The rows are the
+// history's [0, min(flushed, lim)) and then every tail column in column
+// order, a column outside [flushed, pos] adding nothing, so no tail length
+// is too long. Loads are scalar and the element types are read at run time
+// (one instantiation for every dtype combination), so any head_dim and any
+// element alignment serve.
+// With round_tail (f32 compute over the bf16 cache of an f32 model, which
+// the library's blocking generator keeps) the kernel places the plain
+// version's roundings, as the JAX package computes them: the tail's
+// probabilities are rounded to bf16, and the tail's sum is rounded to bf16
+// before it joins the history's; a greedy f32 run then gives the plain
+// path's codes (the online softmax above never holds a normalized
+// probability to round). Off the streaming path.
+constexpr int kTile = 32;              // rows whose probabilities one pass-3 step stages
+constexpr int kOut = 4;                // outputs of a thread in one pass-3 sweep
+constexpr int kGenericQBytes = 32768;  // shared memory for q of one group tile
 
-template <typename HT, bool KV8, int HD>
-__device__ __forceinline__ void row_logits(float (*qs)[HD], int G, float scale,
-                                           const HT* krow, float ks, float* x) {
-  for (int g = 0; g < G; ++g) x[g] = 0.f;
-  for (int d = 0; d < HD; ++d) {
-    const float k = to_f(krow[d]);
-    for (int g = 0; g < G; ++g) x[g] = fmaf(qs[g][d], k, x[g]);
-  }
-  for (int g = 0; g < G; ++g) x[g] = KV8 ? x[g] * scale * ks : x[g] * scale;
+enum Elem { kF32 = 0, kBf16 = 1, kI8 = 2 };
+
+__device__ __forceinline__ float load_elem(const void* p, long long i, int e) {
+  if (e == kF32) return __ldg(static_cast<const float*>(p) + i);
+  if (e == kBf16) return to_f(static_cast<const __nv_bfloat16*>(p)[i]);
+  return (float)__ldg(static_cast<const signed char*>(p) + i);
 }
 
-// Grid (n_kv, B), kThreads threads.
-template <typename HT, bool KV8, int HD>
+struct Generic {
+  int q_elem, hist_elem, tail_elem;  // Elem codes; q's is also the output's
+  bool kv8, round_tail;
+};
+
 __global__ void __launch_bounds__(kThreads)
-decode_attn_bf16_tail_kernel(const float* __restrict__ q, const HT* __restrict__ k_hist,
-                             const HT* __restrict__ v_hist, const float* __restrict__ k_scale,
-                             const float* __restrict__ v_scale, long long hsb, long long hsh,
-                             long long ssb, long long ssh, const __nv_bfloat16* __restrict__ k_tail,
-                             const __nv_bfloat16* __restrict__ v_tail, const int* __restrict__ pos,
-                             const int* __restrict__ flushed, const int* __restrict__ tail_pos,
-                             float* __restrict__ out, int H, int n_kv, int lim, int W) {
-  constexpr int kOut = kMaxGroup * HD / kThreads;  // outputs per thread, at most
-  __shared__ int cols[kMaxW];
-  __shared__ float qs[kMaxGroup][HD];
+decode_attn_generic_kernel(const void* __restrict__ q, const void* __restrict__ k_hist,
+                           const void* __restrict__ v_hist, const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale, long long hsb, long long hsh,
+                           long long ssb, long long ssh, const void* __restrict__ k_tail,
+                           const void* __restrict__ v_tail, const int* __restrict__ pos,
+                           const int* __restrict__ flushed, const int* __restrict__ tail_pos,
+                           void* __restrict__ out, int H, int n_kv, int hd, int lim, int W, int gt,
+                           Generic e) {
+  extern __shared__ float qs[];         // [G][hd]
   __shared__ float stat[2][kMaxGroup];  // max, sum of exponentials
   __shared__ float red[32];
   __shared__ float pt[kMaxGroup][kTile];
-  const int h = blockIdx.x, b = blockIdx.y, G = H / n_kv;
+  // Grid (n_kv * group tiles, B): query heads [g0, g0 + G) of kv head h.
+  const int G_all = H / n_kv, tiles = (G_all + gt - 1) / gt;
+  const int h = blockIdx.x / tiles, g0 = (blockIdx.x % tiles) * gt, G = min(gt, G_all - g0);
+  const int b = blockIdx.y;
   const int p_b = __ldg(pos + b), f_b = __ldg(flushed + b);
-  const int n_h = max(0, min(f_b, lim));
-  int n_tail = 0;  // valid tail columns in column order, as the plain mask takes them
-  for (int c0 = 0; c0 < W; c0 += kThreads) {
-    const int c = c0 + threadIdx.x;
-    const int t = c < W ? __ldg(tail_pos + (long long)b * W + c) : -1;
-    const bool ok = t >= 0 && t >= f_b && t <= p_b;
-    const unsigned m = __ballot_sync(0xffffffffu, ok);
-    __shared__ int wcnt[kWarps];
-    if ((threadIdx.x & 31) == 0) wcnt[threadIdx.x >> 5] = __popc(m);
-    __syncthreads();
-    int before = n_tail;
-    for (int w = 0; w < (int)(threadIdx.x >> 5); ++w) before += wcnt[w];
-    if (ok) cols[before + __popc(m & ((1u << (threadIdx.x & 31)) - 1u))] = c;
-    for (int w = 0; w < kWarps; ++w) n_tail += wcnt[w];
-    __syncthreads();
-  }
-  const float* qb = q + ((long long)b * H + h * G) * HD;
-  for (int i = threadIdx.x; i < G * HD; i += kThreads) qs[i / HD][i % HD] = qb[i];
+  const int n_h = max(0, min(f_b, lim)), n = n_h + W;
+  const long long qoff = ((long long)b * H + h * G_all + g0) * hd;
+  for (int i = threadIdx.x; i < G * hd; i += kThreads) qs[i] = load_elem(q, qoff + i, e.q_elem);
   __syncthreads();
-  const float scale = (float)(1.0 / sqrt((double)HD));
+  const float scale = (float)(1.0 / sqrt((double)hd));
   const long long hoff = b * hsb + h * hsh, soff = b * ssb + h * ssh;
-  const long long toff = ((long long)b * n_kv + h) * W * HD;
-  const int n = n_h + n_tail;
-  auto logits = [&](int i, float* x) {
-    if (i < n_h)
-      row_logits<HT, KV8, HD>(qs, G, scale, k_hist + hoff + (long long)i * HD,
-                              KV8 ? __ldg(k_scale + soff + i) : 1.f, x);
-    else
-      row_logits<__nv_bfloat16, false, HD>(qs, G, scale,
-                                           k_tail + toff + (long long)cols[i - n_h] * HD, 1.f, x);
+  const long long toff = ((long long)b * n_kv + h) * W * hd;
+  const int* tp = tail_pos + (long long)b * W;
+  auto valid = [&](int i) {
+    if (i < n_h) return true;
+    const int t = __ldg(tp + i - n_h);
+    return t >= 0 && t >= f_b && t <= p_b;
+  };
+  // Row i's key: the source, its element code and the row's offset.
+  auto key_row = [&](int i, const void*& src, int& el, long long& off) {
+    if (i < n_h) {
+      src = k_hist, el = e.hist_elem, off = hoff + (long long)i * hd;
+    } else {
+      src = k_tail, el = e.tail_elem, off = toff + (long long)(i - n_h) * hd;
+    }
+  };
+  // The logits of row i for heads [0, G) (x) or for head g alone; both sum
+  // over the head dims in one order, so the passes agree bit for bit.
+  auto row_logits = [&](int i, float* x) {
+    const void* src;
+    int el;
+    long long off;
+    key_row(i, src, el, off);
+    for (int g = 0; g < G; ++g) x[g] = 0.f;
+    for (int d = 0; d < hd; ++d) {
+      const float k = load_elem(src, off + d, el);
+      for (int g = 0; g < G; ++g) x[g] = fmaf(qs[g * hd + d], k, x[g]);
+    }
+    const float ks = e.kv8 && i < n_h ? __ldg(k_scale + soff + i) : 1.f;
+    for (int g = 0; g < G; ++g) x[g] = e.kv8 && i < n_h ? x[g] * scale * ks : x[g] * scale;
+  };
+  auto head_logit = [&](int i, int g) {
+    const void* src;
+    int el;
+    long long off;
+    key_row(i, src, el, off);
+    float x = 0.f;
+    const float* qg = qs + g * hd;
+    for (int d = 0; d < hd; ++d) x = fmaf(qg[d], load_elem(src, off + d, el), x);
+    return e.kv8 && i < n_h ? x * scale * __ldg(k_scale + soff + i) : x * scale;
   };
 
   // Passes 1 and 2: the max and the sum of exponentials per head.
@@ -531,8 +573,9 @@ decode_attn_bf16_tail_kernel(const float* __restrict__ q, const HT* __restrict__
     float acc[kMaxGroup];
     for (int g = 0; g < G; ++g) acc[g] = pass == 0 ? -INFINITY : 0.f;
     for (int i = threadIdx.x; i < n; i += kThreads) {
+      if (!valid(i)) continue;
       float x[kMaxGroup];
-      logits(i, x);
+      row_logits(i, x);
       for (int g = 0; g < G; ++g)
         acc[g] = pass == 0 ? fmaxf(acc[g], x[g]) : acc[g] + expf(x[g] - stat[0][g]);
     }
@@ -543,84 +586,101 @@ decode_attn_bf16_tail_kernel(const float* __restrict__ q, const HT* __restrict__
     __syncthreads();
   }
 
-  // Pass 3: probabilities of kTile rows at a time, then every output
-  // (g, d) of the group takes them times the values.
-  float acc_h[kOut], acc_t[kOut];
-  for (int k = 0; k < kOut; ++k) acc_h[k] = acc_t[k] = 0.f;
-  for (int i0 = 0; i0 < n; i0 += kTile) {
-    if (threadIdx.x < G * kTile) {
-      const int g = threadIdx.x / kTile, i = i0 + threadIdx.x % kTile;
-      float p = 0.f;
-      if (i < n) {
-        float x[kMaxGroup];
-        logits(i, x);
-        p = expf(x[g] - stat[0][g]) / stat[1][g];
-        if (i >= n_h) p = round_to<__nv_bfloat16>(p);
-        else if (KV8) p *= __ldg(v_scale + soff + i);
+  // Pass 3, in sweeps of kThreads * kOut outputs: the probabilities of kTile
+  // rows at a time (the history's times the value scale with kv8), then every
+  // output (g, d) of the sweep takes them times the values.
+  const int n_out = G * hd;
+  for (int o0 = 0; o0 < n_out; o0 += kThreads * kOut) {
+    float acc_h[kOut], acc_t[kOut];
+    for (int k = 0; k < kOut; ++k) acc_h[k] = acc_t[k] = 0.f;
+    for (int i0 = 0; i0 < n; i0 += kTile) {
+      if (threadIdx.x < G * kTile) {
+        const int g = threadIdx.x / kTile, i = i0 + threadIdx.x % kTile;
+        float p = 0.f;
+        if (i < n && valid(i)) {
+          p = expf(head_logit(i, g) - stat[0][g]) / stat[1][g];
+          if (i >= n_h) {
+            if (e.round_tail) p = round_to<__nv_bfloat16>(p);
+          } else if (e.kv8) {
+            p *= __ldg(v_scale + soff + i);
+          }
+        }
+        pt[g][threadIdx.x % kTile] = p;
       }
-      pt[g][threadIdx.x % kTile] = p;
+      __syncthreads();
+      for (int k = 0; k < kOut; ++k) {
+        const int o = o0 + threadIdx.x + k * kThreads;
+        if (o >= n_out) break;
+        const int g = o / hd, d = o % hd;
+        for (int j = 0; j < kTile && i0 + j < n; ++j) {
+          const float pj = pt[g][j];
+          if (pj == 0.f) continue;
+          const int i = i0 + j;
+          if (i < n_h)
+            acc_h[k] = fmaf(pj, load_elem(v_hist, hoff + (long long)i * hd + d, e.hist_elem), acc_h[k]);
+          else
+            acc_t[k] = fmaf(pj, load_elem(v_tail, toff + (long long)(i - n_h) * hd + d, e.tail_elem),
+                            acc_t[k]);
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
     for (int k = 0; k < kOut; ++k) {
-      const int o = threadIdx.x + k * kThreads, g = o / HD, d = o % HD;
-      if (g >= G) break;
-      for (int j = 0; j < kTile && i0 + j < n; ++j) {
-        const int i = i0 + j;
-        if (i < n_h)
-          acc_h[k] = fmaf(pt[g][j], to_f(v_hist[hoff + (long long)i * HD + d]), acc_h[k]);
-        else
-          acc_t[k] = fmaf(pt[g][j], to_f(v_tail[toff + (long long)cols[i - n_h] * HD + d]), acc_t[k]);
-      }
+      const int o = o0 + threadIdx.x + k * kThreads;
+      if (o >= n_out) break;
+      const float r = acc_h[k] + (e.round_tail ? round_to<__nv_bfloat16>(acc_t[k]) : acc_t[k]);
+      if (e.q_elem == kF32)
+        static_cast<float*>(out)[qoff + o] = r;
+      else
+        static_cast<__nv_bfloat16*>(out)[qoff + o] = __float2bfloat16_rn(r);
     }
-    __syncthreads();
-  }
-  for (int k = 0; k < kOut; ++k) {
-    const int o = threadIdx.x + k * kThreads, g = o / HD, d = o % HD;
-    if (g >= G) break;
-    out[((long long)b * H + h * G + g) * HD + d] = acc_h[k] + round_to<__nv_bfloat16>(acc_t[k]);
   }
 }
 
-template <typename HT, bool KV8>
-int launch_bf16_tail(const Call* c) {
-  const dim3 grid(c->n_kv, c->B);
-  if (c->hd == 64)
-    decode_attn_bf16_tail_kernel<HT, KV8, 64><<<grid, kThreads, 0, c->stream>>>(
-        (const float*)c->q, (const HT*)c->k_hist, (const HT*)c->v_hist, c->k_scale, c->v_scale,
-        c->hsb, c->hsh, c->ssb, c->ssh, (const __nv_bfloat16*)c->k_tail,
-        (const __nv_bfloat16*)c->v_tail, c->pos, c->flushed, c->tail_pos, (float*)c->out, c->H,
-        c->n_kv, c->lim, c->W);
-  else
-    decode_attn_bf16_tail_kernel<HT, KV8, 128><<<grid, kThreads, 0, c->stream>>>(
-        (const float*)c->q, (const HT*)c->k_hist, (const HT*)c->v_hist, c->k_scale, c->v_scale,
-        c->hsb, c->hsh, c->ssb, c->ssh, (const __nv_bfloat16*)c->k_tail,
-        (const __nv_bfloat16*)c->v_tail, c->pos, c->flushed, c->tail_pos, (float*)c->out, c->H,
-        c->n_kv, c->lim, c->W);
+// dtype: 0 f32, 1 bf16 (q, out); hist as smoltts_decode_attention takes it.
+int launch_generic(const Call* c, int dtype, int hist) {
+  const int q_elem = dtype == 0 ? kF32 : kBf16;
+  const int tail_elem = hist >= 2 ? kBf16 : q_elem;
+  const Generic e{q_elem, hist & 1 ? kI8 : tail_elem, tail_elem, (hist & 1) != 0, hist >= 2};
+  const int G_all = c->H / c->n_kv;
+  const int gt = min(min(G_all, kMaxGroup), max(1, kGenericQBytes / (4 * c->hd)));
+  const int tiles = (G_all + gt - 1) / gt;
+  const dim3 grid(c->n_kv * tiles, c->B);
+  decode_attn_generic_kernel<<<grid, kThreads, (size_t)gt * c->hd * sizeof(float), c->stream>>>(
+      c->q, c->k_hist, c->v_hist, c->k_scale, c->v_scale, c->hsb, c->hsh, c->ssb, c->ssh,
+      c->k_tail, c->v_tail, c->pos, c->flushed, c->tail_pos, c->out, c->H, c->n_kv, c->hd,
+      c->lim, c->W, gt, e);
   return (int)cudaGetLastError();
 }
 
+// The tuned kernel for head dims 32, 64 and 128 over a history of the
+// compute dtype or int8 and a tail of at most kMaxW columns; the generic
+// kernel for the rest.
 int dispatch(const Call* c, int dtype, int hist, int hd, int G) {
-  if (dtype == 1 && hist == 1) return by_shape<__nv_bfloat16, int8_t, true, 1, 1>(c, hd, G);
-  if (dtype == 1 && hist == 0) return by_shape<__nv_bfloat16, __nv_bfloat16, false, 1, 0>(c, hd, G);
-  if (dtype == 0 && hist == 1) return by_shape<float, int8_t, true, 0, 1>(c, hd, G);
-  if (dtype == 0 && hist == 0) return by_shape<float, float, false, 0, 0>(c, hd, G);
-  if (c == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && hist == 2) return launch_bf16_tail<__nv_bfloat16, false>(c);
-  if (dtype == 0 && hist == 3) return launch_bf16_tail<int8_t, true>(c);
-  return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  if (hist <= 1 && (hd == 32 || hd == 64 || hd == 128) && (c == nullptr || c->W <= kMaxW)) {
+    if (dtype == 1 && hist == 1) return by_shape<bf16, int8_t, true, 1, 1>(c, hd, G);
+    if (dtype == 1 && hist == 0) return by_shape<bf16, bf16, false, 1, 0>(c, hd, G);
+    if (dtype == 0 && hist == 1) return by_shape<float, int8_t, true, 0, 1>(c, hd, G);
+    if (dtype == 0 && hist == 0) return by_shape<float, float, false, 0, 0>(c, hd, G);
+  }
+  if (c == nullptr || dtype < 0 || dtype > 1 || hist < 0 || hist > 3 || (hist >= 2 && dtype != 0))
+    return (int)cudaErrorInvalidValue;
+  return launch_generic(c, dtype, hist);
 }
 
 }  // namespace
 
-// The SM count and every variant's resident blocks per SM, queried once when
-// the library is loaded; the split of each call is chosen from them.
+// The SM count and every tuned variant's resident blocks per SM, queried once
+// when the library is loaded; the split of each call is chosen from them.
 extern "C" int smoltts_decode_attention_setup() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  for (int v = 0; v < 16; ++v) {  // (dtype, hist, hd, group) by bits
-    const int r = dispatch(nullptr, v & 1, (v >> 1) & 1, v & 4 ? 128 : 64, v & 8 ? 8 : 3);
+  static const int kHds[3] = {64, 128, 32};
+  for (int v = 0; v < 24; ++v) {  // (dtype, hist, group) by bits, then hd
+    const int r = dispatch(nullptr, v & 1, (v >> 1) & 1, kHds[v >> 3], v & 4 ? 8 : 3);
     if (r != 0) return r;
   }
   return 0;
@@ -628,7 +688,9 @@ extern "C" int smoltts_decode_attention_setup() {
 
 // dtype: 0 = f32, 1 = bf16 (q, tail, out). hist: 0 = same as dtype, 1 = int8
 // with f32 scales; under f32 compute also 2 = bf16 history and tail, 3 = int8
-// history and a bf16 tail (decode_attn_bf16_tail_kernel).
+// history and a bf16 tail (the generic kernel, rounding as the plain
+// version). Any B, H, n_kv with n_kv dividing H, head_dim up to kMaxHd, and
+// any tail length.
 extern "C" int smoltts_decode_attention(const void* q, const void* k_hist, const void* v_hist,
                                         const float* k_scale, const float* v_scale,
                                         long long hsb, long long hsh, long long ssb,
@@ -637,8 +699,8 @@ extern "C" int smoltts_decode_attention(const void* q, const void* k_hist, const
                                         void* out, int B, int H, int n_kv, int hd, int lim,
                                         int W, int dtype, int hist, cudaStream_t stream) {
   (void)cudaGetLastError();
-  if (n_kv <= 0 || H % n_kv != 0 || H / n_kv < 1 || H / n_kv > kMaxGroup ||
-      (hd != 64 && hd != 128) || W < 0 || W > kMaxW || lim < 0)
+  if (n_kv <= 0 || H <= 0 || H % n_kv != 0 || hd <= 0 || hd > kMaxHd || W < 0 || lim < 0 ||
+      B < 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (g_sms == 0) return (int)cudaErrorInitializationError;  // setup not run
   if (B == 0) return 0;

@@ -1,2 +1,2 @@
-"""DualAR language-model decoding: prompts, sampling, the cached frame step
-and the streaming pipeline."""
+"""DualAR language-model decoding: prompts, sampling, the cached frame step,
+the streaming pipeline and the continuous-batching engine (lm/engine.py)."""

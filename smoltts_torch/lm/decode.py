@@ -99,11 +99,15 @@ def init_decode_state(
 
 def flush_kv(state: DecodeState) -> DecodeState:
     """Scatter every valid tail entry to its cache position (quantizing in
-    kv8 mode) and reset the ring. Writes the history in place."""
+    kv8 mode) and reset the ring. Writes the history in place. An entry whose
+    position is S or more is dropped, as the JAX package's scatter drops it
+    (a freed engine slot keeps advancing past S)."""
+    S = state.k.shape[3]
     valid = (
         (state.tail_pos >= 0)
         & (state.tail_pos >= state.flushed[:, None])
         & (state.tail_pos < state.pos[:, None])
+        & (state.tail_pos < S)
     )
     b_idx, w_idx = valid.nonzero(as_tuple=True)
     dst = state.tail_pos[b_idx, w_idx].long()
@@ -127,16 +131,29 @@ def flush_kv(state: DecodeState) -> DecodeState:
 def _write_kv(cache, new, pos, scale_cache=None):
     """Write new [B, T, H, hd] into cache [B, H, S, hd] at positions
     pos[b]..pos[b]+T-1 (quantized per vector when `scale_cache` is given).
-    In place."""
+    In place. Past the cache's end it does what the JAX package does: a
+    single token at position S or more is dropped (`.at[].set`), a block of
+    T > 1 starts at most at S - T (`dynamic_update_slice` clamps)."""
     B, T = new.shape[:2]
+    S = cache.shape[2]
+    if T > S:
+        raise ValueError(f"{T} new positions do not fit a cache of {S}")
+    pos = pos.long()
     rows = torch.arange(B, device=new.device)[:, None]
-    cols = pos.long()[:, None] + torch.arange(T, device=new.device)[None, :]
+    start = pos.clamp(0, S - T) if T > 1 else pos.clamp(max=S - 1)
+    cols = start[:, None] + torch.arange(T, device=new.device)[None, :]
     if scale_cache is not None:
         q, s = quantize_kv(new)  # [B, T, H, hd], [B, T, H]
-        cache[rows, :, cols] = q
-        scale_cache[rows, :, cols] = s
     else:
-        cache[rows, :, cols] = new.to(cache.dtype)
+        q, s = new.to(cache.dtype), None
+    if T == 1:  # a dropped row writes back what its last column holds
+        keep = (pos < S)[:, None, None]
+        q = torch.where(keep[..., None], q, cache[rows, :, cols])
+        if s is not None:
+            s = torch.where(keep, s, scale_cache[rows, :, cols])
+    cache[rows, :, cols] = q
+    if s is not None:
+        scale_cache[rows, :, cols] = s
 
 
 def _cached_sdpa_multi(q, k, v, valid_bqk):

@@ -1,0 +1,739 @@
+"""Continuous-batching decode engine: B fixed slots, per-stream state.
+
+A fixed batch of B decode slots whose KV caches, positions, finished flags
+and Mimi vocoder states live on the card. Streams are admitted into free
+slots (prefill into a fresh sub-state, scattered into the slots), stepped
+together every 80 ms frame, and evicted on <|im_end|> or at their frame
+budget. The semantics are the JAX package's (`smoltts_tpu/lm/engine.py`);
+where the port differs:
+
+- The state is updated in place (lm/decode.py), so a dispatched step's
+  outputs are snapshotted when it is dispatched: on the card, copies into
+  pinned host buffers enqueued on the step's stream, then a CUDA event.
+  `fetch` waits on its own records' events and enqueues no device work;
+  only the thread that dispatches launches kernels.
+- Randomness is a `torch.Generator` on the engine's device, where the JAX
+  engine splits its key: sampled streams match JAX in distribution only,
+  greedy streams token for token.
+- `warm` runs every program once on a throwaway state of the engine's
+  shapes, so the kernels are built and loaded and cuDNN has chosen its
+  algorithms before the first request; `shard` waits for the parallelism
+  slice.
+- Fetched frames are numpy arrays; f32-format PCM is float32 also for a
+  bf16 vocoder (numpy has no bfloat16).
+
+Host-side, `DecodeEngine` is synchronous (`submit` + `step`); `EngineLoop`
+drives it from a dispatch thread and fetch threads that fan frames out to
+per-stream queues.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import queue
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from smoltts_torch import resolve_device
+from smoltts_torch.config import DualARConfig
+from smoltts_torch.lm.decode import decode_frame, init_decode_state, prefill
+from smoltts_torch.lm.generate import pad_prompts
+from smoltts_torch.lm.samplers import GenerationSettings
+from smoltts_torch.tokenizer import TokenConfig
+
+
+@dataclass
+class StreamHandle:
+    stream_id: int
+    slot: int
+    frames_emitted: int = 0  # fetched + accounted frames
+    frames_dispatched: int = 0  # frames enqueued on the device (runs ahead)
+    max_frames: int = 1024
+    done: bool = False
+
+
+class Record(NamedTuple):
+    """One dispatched device step awaiting its result fetch.
+
+    `urgent` marks admission records: they hold a just-admitted stream's
+    FIRST frame, so `take_due` releases them at once instead of holding them
+    `inflight` dispatches behind. Fetching one ahead of older records is
+    safe: it is the first record that mentions its streams, and frames of
+    other streams keep their dispatch order within their own records."""
+
+    payload: tuple  # host snapshots: (codes, is_audio, finished, slow, pcm or None)
+    rows: list  # [(row index in payload, stream id)]
+    n_frames: int  # 1 or chunk K (payload frame-major [K, B, ...])
+    urgent: bool = False
+    # Dispatch order of NON-urgent records (None for urgent ones): parallel
+    # fetchers account them in this order.
+    seq: Optional[int] = None
+    # fetch_start / fetch_end stamps written by fetch(), folded into the
+    # engine's timings for admission records (see pop_timing).
+    meta: dict = None
+    # The card's event after the snapshot copies (None on the CPU).
+    event: Optional[object] = None
+
+
+class DecodeEngine:
+    """Slot-based continuous batching over prefill and the frame steps."""
+
+    def __init__(
+        self,
+        params,
+        cfg: DualARConfig,
+        token_cfg: TokenConfig,
+        settings: GenerationSettings,
+        num_slots: int = 32,
+        max_seq_len: Optional[int] = None,
+        kv_dtype=torch.bfloat16,
+        generator: Optional[torch.Generator] = None,
+        prompt_bucket: int = 64,
+        mimi_params=None,
+        mimi_cfg=None,
+        attend_buckets: Optional[List[int]] = None,
+        inflight: int = 2,
+        fetch_every: int = 1,
+        emit_int16: bool = False,
+        emit_format: str = None,
+        chunk_frames: int = 1,
+        tail_len: int = 128,
+        admit_sizes: Optional[List[int]] = None,
+        device=None,
+    ):
+        from smoltts_torch.lm.pipeline import flush_cadence, make_flush_step
+        from smoltts_torch.ops.quant import fuse_decode_params, fuse_mimi_decode_params
+
+        self.device = resolve_device(device)
+        # chunk_frames > 1: with the vocoder attached, one dispatch advances K
+        # frames (make_chunk_step); admissions are taken at the top of every
+        # dispatch, so a queued prompt waits at most the in-flight records.
+        self.chunk_frames = max(1, int(chunk_frames))
+        # emit_format: the PCM representation of fetched frames, made on the
+        # device: "f32", "int16" (what the stream route serves; 2x fewer bytes
+        # to the host) or "ulaw" (G.711 mu-law, 4x fewer; io/g711.py).
+        # emit_int16=True is the older spelling of "int16".
+        self.emit_format = emit_format or ("int16" if emit_int16 else "f32")
+        if self.emit_format not in ("f32", "int16", "ulaw"):
+            raise ValueError(f"emit_format {self.emit_format!r}")
+        self.emit_int16 = self.emit_format == "int16"
+        self.params = fuse_decode_params(params)  # bit-exact (ops/quant.py)
+        self.cfg = cfg
+        self.token_cfg = token_cfg
+        self.settings = settings
+        self.num_slots = num_slots
+        self.S = max_seq_len or cfg.max_seq_len
+        self.prompt_bucket = prompt_bucket
+        self.kv_dtype = kv_dtype
+        self.tail_len = tail_len
+        # Admission batch sizes (an admission of 7 over {1, 2, 4} runs as
+        # 4 + 2 + 1); 1 is always allowed, so any batch admits.
+        if admit_sizes is None:
+            admit_sizes, n = [], 1
+            while n <= num_slots:
+                admit_sizes.append(n)
+                n *= 2
+        self.admit_sizes = sorted({1} | {int(s) for s in admit_sizes if s <= num_slots})
+        self.generator = (generator if generator is not None
+                          else torch.Generator(device=self.device).manual_seed(0))
+
+        # Length bucketing: each step attends the smallest bucket that covers
+        # every LIVE slot's positions; exact, since reads past pos are masked.
+        if attend_buckets is None:
+            attend_buckets, b = [], 256
+            while b < self.S:
+                attend_buckets.append(b)
+                b *= 2
+        self.attend_buckets = sorted({min(int(b), self.S) for b in attend_buckets} | {self.S})
+        # Host mirror of each live slot's cache position: admission seeds it
+        # with the true prompt length, every dispatched frame adds 1. The
+        # bucket is chosen from it, with no read of the device.
+        self._slot_pos = np.zeros((num_slots,), np.int64)
+        self.last_attend_limit: Optional[int] = None
+
+        # Records are fetched `inflight` dispatches behind, `fetch_every` at a
+        # time (the device keeps working through the fetch).
+        self.inflight = max(0, int(inflight))
+        self.fetch_every = max(1, int(fetch_every))
+        self._queue: "collections.deque" = collections.deque()
+
+        self.state = self._fresh_state()
+        self._slot_ids = torch.arange(num_slots, device=self.device)
+        # Slots freed since the last dispatch, marked finished on the device at
+        # the top of the next one, by the dispatching thread (a stream that
+        # ends on <|im_end|> is released by `account`, on a fetch thread).
+        self._to_mark: List[int] = []
+        self._ids = itertools.count()
+        # Dispatch order of non-urgent records: a plain int, so an EngineLoop
+        # attached later resumes accounting from the engine's position.
+        self._seq = 0
+        self._free: List[int] = list(range(num_slots))
+        self._streams: Dict[int, StreamHandle] = {}
+        self._slot_to_stream: Dict[int, int] = {}
+        self._pending: List[Tuple[int, np.ndarray]] = []
+        # Dispatch/fetch economics: fetch_calls per dispatched frame stay
+        # ~1/chunk_frames in steady state. frame_steps counts the frames the
+        # whole batch advanced, admissions the prefill dispatches.
+        self.stats = {
+            "dispatches": 0,
+            "frames_dispatched": 0,
+            "fetch_calls": 0,
+            "records_fetched": 0,
+            "urgent_fetched": 0,
+            "frame_steps": 0,
+            "admissions": 0,
+        }
+        # Per-stream first-audio latency stamps (submit -> admit -> fetch_start
+        # -> fetch_end -> first), kept until pop_timing() or cap eviction.
+        self.timings: "collections.OrderedDict" = collections.OrderedDict()
+        self._timings_cap = 4096
+
+        # Optional slot-batched vocoder: the Mimi streaming state lives on the
+        # same slots, and frames are vocoded in the same dispatch.
+        self.mimi_params = None if mimi_params is None else fuse_mimi_decode_params(mimi_params)
+        self.mimi_cfg = mimi_cfg
+        self.mimi_state = None if mimi_params is None else self._fresh_mimi_state()
+        self._stream_steps: Dict[int, callable] = {}
+        self._chunk_steps: Dict[int, callable] = {}
+        # Ring-tail flush cadence of the LM (and codec transformer) tails.
+        self._flush = make_flush_step(device=self.device)
+        self._since_flush = 0
+        self._flush_every = flush_cadence(self.state, self.mimi_state)
+        # A chunk's K frames all land in the ring tails before the next flush.
+        self.chunk_frames = min(self.chunk_frames, max(1, self._flush_every))
+
+    # ------------------------------------------------------------------
+
+    def _fresh_state(self):
+        """All slots idle (finished)."""
+        state = init_decode_state(self.cfg, self.num_slots, self.S, dtype=self.kv_dtype,
+                                  tail_len=self.tail_len, device=self.device)
+        return state._replace(finished=torch.ones_like(state.finished))
+
+    def _fresh_mimi_state(self):
+        """kv8 (kv_dtype int8) applies to the codec's KV ring only; its conv
+        buffers are then bf16."""
+        from smoltts_torch.codec.mimi import decode_stream_init
+
+        kv8 = self.kv_dtype == torch.int8
+        return decode_stream_init(self.mimi_cfg, self.num_slots,
+                                  dtype=torch.bfloat16 if kv8 else self.kv_dtype,
+                                  kv_dtype=torch.int8 if kv8 else None, device=self.device)
+
+    def shard(self, mesh, tensor_parallel: bool = False, shard_tables: bool = False):
+        raise NotImplementedError(
+            "DecodeEngine.shard: laying the engine over a device mesh is the port's "
+            "parallelism slice (ROADMAP A7); the engine runs on one card")
+
+    @property
+    def active(self) -> int:
+        return len(self._streams)
+
+    def _emit_pcm(self, pcm: torch.Tensor) -> torch.Tensor:
+        """The fetched PCM representation per emit_format, made on the device.
+        int16 truncates toward zero after clip * 32767, as JAX's astype."""
+        if self.emit_format == "int16":
+            return (torch.clamp(pcm.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+        if self.emit_format == "ulaw":
+            from smoltts_torch.io.g711 import ulaw_encode
+
+            return ulaw_encode(pcm)
+        return pcm.float()
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, with no wait on the device's
+        queue (a copy from pageable memory would synchronize the stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _snapshot(self, tensors) -> Tuple[tuple, Optional[object]]:
+        """Host copies of a step's outputs as they are now in stream order,
+        and the event that marks them complete (None on the CPU, where the
+        copies are done on return)."""
+        if self.device.type != "cuda":
+            return tuple(None if t is None else t.clone() for t in tensors), None
+        host = []
+        for t in tensors:
+            if t is None:
+                host.append(None)
+                continue
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        event = torch.cuda.Event(blocking=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return tuple(host), event
+
+    def _stream_step(self, lim: int):
+        from smoltts_torch.lm.pipeline import make_stream_step
+
+        if lim not in self._stream_steps:
+            self._stream_steps[lim] = make_stream_step(
+                self.cfg, self.token_cfg, self.settings, self.mimi_cfg, attend_limit=lim,
+                device=self.device)
+        return self._stream_steps[lim]
+
+    def _chunk_step(self, lim: int):
+        from smoltts_torch.lm.pipeline import make_chunk_step
+
+        if lim not in self._chunk_steps:
+            self._chunk_steps[lim] = make_chunk_step(
+                self.cfg, self.token_cfg, self.settings, self.mimi_cfg, self.chunk_frames,
+                attend_limit=lim, device=self.device)
+        return self._chunk_steps[lim]
+
+    def _advance(self, state, mstate, K: int, lim: int, generator):
+        """K frames for every slot -> (state', mstate', (codes, is_audio,
+        finished, slow), pcm or None); a chunk's outputs frame-major [K, B, ...]."""
+        if mstate is None:
+            state, o = decode_frame(self.params, self.cfg, self.token_cfg, self.settings, state,
+                                    generator, attend_limit=lim)
+            return state, None, (o.audio_codes, o.is_audio, o.finished, o.slow_token), None
+        if K == 1:
+            state, mstate, _, o = self._stream_step(lim)(self.params, self.mimi_params, state,
+                                                         mstate, generator)
+            return (state, mstate, (o.audio_codes, o.is_audio, o.finished, o.slow_token),
+                    self._emit_pcm(o.pcm))
+        state, mstate, _, o = self._chunk_step(lim)(self.params, self.mimi_params, state, mstate,
+                                                    generator)
+        B, spf = o.pcm.shape[0], o.pcm.shape[1] // K
+        pcm = self._emit_pcm(o.pcm).reshape(B, K, spf, 1).transpose(0, 1)
+        return state, mstate, (o.audio_codes.permute(2, 0, 1), o.is_audio.t(),
+                               o.finished_frames.t(), o.slow_token.t()), pcm
+
+    def _admit(self, state, mstate, slots: List[int], prompt: np.ndarray, lens: np.ndarray,
+               generator):
+        """Prefill n prompts into a fresh n-slot sub-state and scatter it into
+        `slots` of `state` (in place), every field JAX's _admit_fn sets; with
+        the vocoder, vocode the first frames on a zero streaming state and
+        scatter it into `mstate`. Returns (state, first FrameOutput, PCM)."""
+        from smoltts_torch.codec.mimi import (
+            decode_stream_init, mimi_decode_step, reset_stream_slots, scatter_stream_state,
+        )
+
+        n = len(slots)
+        idx = self._upload(np.asarray(slots, np.int64))
+        if mstate is not None:
+            reset_stream_slots(mstate, idx)
+        sub = init_decode_state(self.cfg, n, self.S, dtype=state.k.dtype, device=self.device)
+        sub, out = prefill(self.params, self.cfg, self.token_cfg, self.settings, sub,
+                           self._upload(prompt), self._upload(lens), generator)
+        for big, small in ((state.k, sub.k), (state.v, sub.v), (state.k_scale, sub.k_scale),
+                           (state.v_scale, sub.v_scale)):
+            if big is not None:
+                big.index_copy_(1, idx, small)
+        # stale ring-tail entries of a reused slot are invalidated; the
+        # prompt's K/V went straight to the history
+        state.tail_pos.index_fill_(0, idx, -1)
+        for name in ("flushed", "pos", "prev_tokens", "finished"):
+            getattr(state, name).index_copy_(0, idx, getattr(sub, name))
+        pcm = None
+        if mstate is not None:
+            kv8 = mstate.transformer.k_scale is not None
+            msub = decode_stream_init(self.mimi_cfg, n, dtype=mstate.upsample_tail.dtype,
+                                      kv_dtype=torch.int8 if kv8 else None, device=self.device)
+            msub, pcm = mimi_decode_step(self.mimi_params, self.mimi_cfg, msub,
+                                         out.audio_codes[:, :, None])
+            pcm = self._emit_pcm(pcm)
+            scatter_stream_state(mstate, msub, idx)
+        return state, out, pcm
+
+    @torch.no_grad()
+    def warm(self, prompt_len: Optional[int] = None, buckets: Optional[List[int]] = None,
+             parallel: int = 0, progress=None) -> None:
+        """Run every program a serving run can hit once: admission at each of
+        `admit_sizes` (with the admission vocode), the frame step (and the
+        chunk step) at each attend bucket, and the flush. They run on a
+        throwaway state of the engine's shapes; the engine's state is not
+        touched. `buckets` restricts the attend buckets (default all).
+        `parallel` is accepted for the JAX signature: nothing here compiles
+        concurrently. `progress` is an optional callable(str)."""
+        del parallel
+        note = progress or (lambda s: None)
+        T = prompt_len or self.prompt_bucket
+        state = self._fresh_state()
+        mstate = None if self.mimi_state is None else self._fresh_mimi_state()
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        for n in self.admit_sizes:
+            prompt = np.zeros((n, self.cfg.num_rows, T), np.int32)
+            state, _, _ = self._admit(state, mstate, list(range(n)), prompt,
+                                      np.full((n,), T, np.int32), gen)
+            note(f"warm admit n={n}")
+        for lim in buckets if buckets is not None else self.attend_buckets:
+            state, mstate, _, _ = self._advance(state, mstate, 1, lim, gen)
+            if mstate is not None and self.chunk_frames > 1:
+                state, mstate = self._flush(state, mstate)
+                state, mstate, _, _ = self._advance(state, mstate, self.chunk_frames, lim, gen)
+                note(f"warm chunk bucket={lim}")
+            state, mstate = self._flush(state, mstate)
+            note(f"warm step bucket={lim}")
+        note("warm flush")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def submit(self, prompt: np.ndarray, max_frames: Optional[int] = None) -> int:
+        """Queue a [num_rows, T] prompt; returns a stream id."""
+        sid = next(self._ids)
+        self._pending.append((sid, np.asarray(prompt, np.int32)))
+        h = StreamHandle(stream_id=sid, slot=-1)
+        h.max_frames = max_frames or self.settings.max_new_tokens
+        self._streams[sid] = h
+        self.timings[sid] = {"submit": time.monotonic()}
+        while len(self.timings) > self._timings_cap:
+            self.timings.popitem(last=False)
+        return sid
+
+    def drain_timings(self) -> List[dict]:
+        """Pop every COMPLETED first-audio decomposition (see pop_timing)."""
+        out = []
+        for sid in [s for s, t in list(self.timings.items()) if "first" in t]:
+            t = self.pop_timing(sid)
+            if t is not None:
+                out.append(t)
+        return out
+
+    def pop_timing(self, sid: int) -> Optional[dict]:
+        """First-audio latency decomposition of a served stream, seconds:
+        `queue_wait` (submit -> prefill dispatched), `dispatch_wait` (->
+        the urgent fetch begins: device execution plus fetcher pickup),
+        `fetch` (the wait for the record and its copy to the host), `deliver`
+        (-> frame accounted), and `total`. None until the first frame has
+        been accounted."""
+        t = self.timings.get(sid)
+        if not t or "first" not in t:
+            return None
+        self.timings.pop(sid, None)
+        return {
+            "queue_wait": t["admit"] - t["submit"],
+            "dispatch_wait": t["fetch_start"] - t["admit"],
+            "fetch": t["fetch_end"] - t["fetch_start"],
+            "deliver": t["first"] - t["fetch_end"],
+            "total": t["first"] - t["submit"],
+        }
+
+    # ------------------------------------------------------------------
+
+    def _admit_pending(self) -> None:
+        """Prefill queued prompts into free slots; enqueue their first frames
+        as urgent records. Batch sizes are quantized to `admit_sizes`."""
+        while self._pending and self._free:
+            n = min(len(self._pending), len(self._free))
+            n = max(s for s in self.admit_sizes if s <= n)  # largest allowed
+            batch = [self._pending.pop(0) for _ in range(n)]
+            slots = [self._free.pop(0) for _ in range(n)]
+            for (sid, _), slot in zip(batch, slots):
+                self._streams[sid].slot = slot
+                self._slot_to_stream[slot] = sid
+            prompt, lens = pad_prompts([p for _, p in batch], pad_to_multiple=self.prompt_bucket)
+            self._slot_pos[slots] = lens  # true lengths: reads past pos are masked
+            self.state, out, pcm0 = self._admit(self.state, self.mimi_state, slots, prompt, lens,
+                                                self.generator)
+            payload, event = self._snapshot(
+                (out.audio_codes, out.is_audio, out.finished, out.slow_token, pcm0))
+            t_admit = time.monotonic()
+            for sid, _ in batch:
+                if sid in self.timings:
+                    self.timings[sid]["admit"] = t_admit
+            self._queue.append(Record(
+                payload, [(i, sid) for i, (sid, _) in enumerate(batch)], 1,
+                urgent=True, meta={}, event=event,
+            ))
+            self.stats["admissions"] += 1
+
+    def _bookkeep(self, sid: int, frame: dict) -> Optional[dict]:
+        """Account one fetched frame; None = drop (the stream was already
+        released: the device ran ahead of the host's lagged eviction)."""
+        h = self._streams.get(sid)
+        if h is None or h.done:
+            return None
+        h.frames_emitted += 1
+        if frame["finished"] or h.frames_emitted >= h.max_frames:
+            h.done = True
+            frame["finished"] = True
+            self._release(sid)
+        return frame
+
+    def _free_slot(self, h: StreamHandle) -> None:
+        """Return a stream's slot to the pool; it is marked finished on the
+        device before the next dispatch's admissions (`_mark_freed`). A
+        budget-limited stream's slot frees when its last frame is DISPATCHED;
+        the handle stays until its frames are fetched (records map rows to
+        stream ids, so a reused slot is unambiguous)."""
+        if h.slot < 0:
+            return
+        self._slot_to_stream.pop(h.slot, None)
+        self._free.append(h.slot)
+        self._to_mark.append(h.slot)
+        h.slot = -1
+
+    def _mark_freed(self) -> None:
+        """Mark the slots freed since the last dispatch finished on the device,
+        so they stop consuming sampler work: one index on the device per slot,
+        no host sync. Runs before admission, which may reuse them."""
+        for slot in self._to_mark:
+            self.state.finished.index_fill_(0, self._slot_ids[slot : slot + 1], True)
+        self._to_mark.clear()
+
+    @staticmethod
+    def fetch(records: list) -> list:
+        """The records' outputs as numpy arrays: waits on each record's own
+        event (no lock, no device work), so it can run outside the engine
+        lock, concurrently with dispatching."""
+        t0 = time.monotonic()
+        for r in records:
+            if r.event is not None:
+                r.event.synchronize()
+        out = [tuple(None if t is None else t.numpy() for t in r.payload) for r in records]
+        t1 = time.monotonic()
+        for r in records:
+            if r.meta is not None:
+                r.meta["fetch_start"] = t0
+                r.meta["fetch_end"] = t1
+        return out
+
+    def account(self, records: list, fetched: list) -> List[Tuple[int, dict]]:
+        """Lagged bookkeeping over fetched results, in dispatch order.
+        Mutates engine state (eviction, slot reuse): call under the lock. A
+        record holds 1 frame ([B, ...]) or a chunk of K (frame-major
+        [K, B, ...]); frames emit in order per stream."""
+        emitted = []
+        if records:
+            self.stats["fetch_calls"] += 1
+            self.stats["records_fetched"] += len(records)
+            self.stats["urgent_fetched"] += sum(r.urgent for r in records)
+        for (codes, is_audio, fin, slow, pcm), rec in zip(fetched, records):
+            rows, n_frames = rec.rows, rec.n_frames
+            for k in range(n_frames):
+                ck, ak, fk, sk = ((codes, is_audio, fin, slow) if n_frames == 1
+                                  else (codes[k], is_audio[k], fin[k], slow[k]))
+                pk = pcm if (pcm is None or n_frames == 1) else pcm[k]
+                for row, sid in rows:
+                    frame = {
+                        "audio_codes": ck[row],
+                        "is_audio": bool(ak[row]),
+                        "finished": bool(fk[row]),
+                        "slow_token": int(sk[row]),
+                    }
+                    if pk is not None:
+                        frame["pcm"] = pk[row, :, 0]
+                    frame = self._bookkeep(sid, frame)
+                    if frame is not None:
+                        emitted.append((sid, frame))
+                        # admission records carry first frames: complete the
+                        # stream's latency decomposition (see pop_timing)
+                        t = rec.meta is not None and self.timings.get(sid)
+                        if t and "first" not in t and "admit" in t:
+                            t["fetch_start"] = rec.meta["fetch_start"]
+                            t["fetch_end"] = rec.meta["fetch_end"]
+                            t["first"] = time.monotonic()
+        return emitted
+
+    def take_due(self, kind: str = "all") -> list:
+        """Pop the records whose fetch is due: `inflight` stay behind while
+        work continues, `fetch_every` go at a time, all when idle. Urgent
+        records (first frames) go at once, out of queue order.
+
+        kind: "all", "urgent" (admission records only, for a dedicated
+        low-latency fetcher) or "bulk" (everything else)."""
+        urgent = []
+        if kind in ("all", "urgent"):
+            urgent = [r for r in self._queue if r.urgent]
+            if urgent:
+                self._queue = collections.deque(r for r in self._queue if not r.urgent)
+            if kind == "urgent":
+                return urgent
+        bulk = [r for r in self._queue if not r.urgent]
+        target = self.inflight if (self._pending or self._slot_to_stream) else 0
+        due = len(bulk) - target
+        if due <= 0 or (target > 0 and due < self.fetch_every):
+            return urgent
+        taken = set(id(r) for r in bulk[:due])
+        self._queue = collections.deque(r for r in self._queue if id(r) not in taken)
+        return urgent + bulk[:due]
+
+    def _materialize(self, records: list) -> List[Tuple[int, dict]]:
+        return self.account(records, self.fetch(records))
+
+    def _release(self, sid: int):
+        h = self._streams.pop(sid, None)
+        if h is not None:
+            self._free_slot(h)
+
+    def step(self) -> List[Tuple[int, dict]]:
+        """Admit pending streams, dispatch one frame (or chunk) for all live
+        slots, and return the frames whose lagged fetch completed this call:
+        [(stream_id, {audio_codes [ncb], is_audio, finished, slow_token,
+        pcm?})]."""
+        self.dispatch_step()
+        emitted: List[Tuple[int, dict]] = []
+        while True:
+            records = self.take_due()
+            if not records:
+                break
+            emitted.extend(self._materialize(records))
+        return emitted
+
+    @torch.no_grad()
+    def dispatch_step(self, admit_only: bool = False) -> None:
+        """Admit pending streams and dispatch one frame (or chunk) for all
+        live slots; results queue for take_due / fetch / account.
+        admit_only=True admits without advancing the live slots."""
+        self._mark_freed()
+        self._admit_pending()
+        if admit_only:
+            return
+        live_slots = list(self._slot_to_stream.items())
+        if not live_slots:
+            return
+        K = self.chunk_frames if self.mimi_state is not None else 1
+        if self._since_flush + K > self._flush_every:
+            self.state, self.mimi_state = self._flush(self.state, self.mimi_state)
+            self._since_flush = 0
+        # The smallest bucket covering every live position (freed slots keep
+        # advancing on the device, but their output is masked and dropped).
+        needed = int(max(self._slot_pos[slot] for slot, _ in live_slots)) + K
+        lim = next(b for b in self.attend_buckets if b >= min(needed, self.S))
+        self.last_attend_limit = lim
+        self.state, self.mimi_state, out, pcm = self._advance(self.state, self.mimi_state, K, lim,
+                                                              self.generator)
+        payload, event = self._snapshot((*out, pcm))
+        for slot, _ in live_slots:
+            self._slot_pos[slot] += K
+        self._since_flush += K
+        self._queue.append(Record(payload, [(s, sid) for s, sid in live_slots], K,
+                                  seq=self._seq, event=event))
+        self._seq += 1
+        self.stats["dispatches"] += 1
+        self.stats["frames_dispatched"] += K * len(live_slots)
+        self.stats["frame_steps"] += K
+        # Proactive slot reuse: the host knows a budget-limited stream's last
+        # frame the moment it is dispatched.
+        for _, sid in live_slots:
+            h = self._streams.get(sid)
+            if h is None:
+                continue
+            h.frames_dispatched += K
+            if h.frames_dispatched >= h.max_frames:
+                self._free_slot(h)
+
+    def has_work(self) -> bool:
+        return bool(self._pending or self._slot_to_stream or self._queue)
+
+
+class EngineLoop:
+    """Background threads driving a DecodeEngine; frames fan out to
+    per-stream queues.
+
+    The DISPATCH thread admits prompts and dispatches steps (the only thread
+    that launches device work); `fetchers` FETCH threads wait for records
+    outside the engine lock. Non-urgent records are ACCOUNTED in dispatch
+    order (`Record.seq`); urgent ones (first frames) the moment they land.
+    With two or more fetchers one is dedicated to urgent records.
+
+    `max_ahead` bounds the un-fetched records dispatch may run ahead; it is
+    also the first-audio latency knob (a new stream's prefill runs behind at
+    most `max_ahead` queued records)."""
+
+    def __init__(self, engine: DecodeEngine, poll_interval: float = 0.002,
+                 max_ahead: Optional[int] = None, fetchers: int = 2):
+        self.engine = engine
+        self.poll_interval = poll_interval
+        self._queues: Dict[int, "queue.Queue"] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        # In-order accounting starts at the oldest record still queued when
+        # the loop attaches (or the engine's cursor).
+        self._acct_cv = threading.Condition(self._lock)
+        self._next_acct = min((r.seq for r in engine._queue if r.seq is not None),
+                              default=engine._seq)
+        self._max_ahead = (max_ahead if max_ahead is not None
+                           else engine.inflight + max(2, engine.fetch_every))
+        # The drain invariant: below inflight + fetch_every the dispatch gate
+        # caps the queue under the bulk fetchers' threshold and nothing ever
+        # drains. A shallow max_ahead is a latency preference, so the
+        # engine's fetch batching (and, if needed, its inflight depth)
+        # shrinks to fit.
+        if self._max_ahead < engine.inflight + engine.fetch_every:
+            engine.fetch_every = max(1, self._max_ahead - engine.inflight)
+            if self._max_ahead < engine.inflight + engine.fetch_every:
+                engine.inflight = max(0, self._max_ahead - engine.fetch_every)
+        assert self._max_ahead >= engine.inflight + engine.fetch_every
+        self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True)
+        n = max(1, int(fetchers))
+        kinds = (["urgent"] + ["bulk"] * (n - 1)) if n >= 2 else ["all"]
+        self._fetchers = [threading.Thread(target=self._fetch_loop, args=(kind,), daemon=True)
+                          for kind in kinds]
+        self._dispatcher.start()
+        for t in self._fetchers:
+            t.start()
+
+    def submit(self, prompt: np.ndarray, max_frames: Optional[int] = None) -> "queue.Queue":
+        q: "queue.Queue" = queue.Queue()
+        with self._lock:
+            sid = self.engine.submit(prompt, max_frames)
+            self._queues[sid] = q
+        q.sid = sid  # for engine.pop_timing(sid)
+        return q
+
+    def _dispatch_loop(self):
+        while not self._stop.is_set():
+            with self._lock:
+                eng = self.engine
+                gate_open = len(eng._queue) < self._max_ahead
+                admit_past_gate = bool(not gate_open and eng._pending and eng._free)
+                work = (bool(eng._pending or eng._slot_to_stream) and gate_open) or admit_past_gate
+                if work:
+                    # Admissions pass the max_ahead gate (admit_only: no bulk
+                    # frame), adding one small urgent record.
+                    eng.dispatch_step(admit_only=admit_past_gate)
+            if not work:
+                time.sleep(self.poll_interval)
+
+    def _emit(self, frames) -> None:
+        for sid, frame in frames:
+            q = self._queues.get(sid)
+            if q is not None:
+                q.put(frame)
+                if frame["finished"]:
+                    q.put(None)  # sentinel
+                    self._queues.pop(sid, None)
+
+    def _account_in_order(self, records, fetched) -> None:
+        """Urgent records at once; non-urgent strictly in `seq` order across
+        all fetcher threads."""
+        for rec, data in zip(records, fetched):
+            with self._acct_cv:
+                if rec.seq is not None:
+                    while self._next_acct < rec.seq and not self._stop.is_set():
+                        self._acct_cv.wait(0.05)
+                frames = self.engine.account([rec], [data])
+                if rec.seq is not None:
+                    self._next_acct = max(self._next_acct, rec.seq + 1)
+                    self._acct_cv.notify_all()
+            self._emit(frames)
+
+    def _fetch_loop(self, kind: str = "all"):
+        while not self._stop.is_set():
+            with self._lock:
+                records = self.engine.take_due(kind)
+            if not records:
+                time.sleep(self.poll_interval)
+                continue
+            fetched = self.engine.fetch(records)  # lock NOT held
+            self._account_in_order(records, fetched)
+
+    def stop(self):
+        self._stop.set()
+        with self._acct_cv:
+            self._acct_cv.notify_all()
+        self._dispatcher.join(timeout=5)
+        for t in self._fetchers:
+            t.join(timeout=5)

@@ -29,7 +29,10 @@ class StreamStepOutput(NamedTuple):
     pcm: torch.Tensor  # [B, samples, 1]
     audio_codes: torch.Tensor  # [B, ncb] ([B, ncb, K] chunked)
     is_audio: torch.Tensor  # [B] ([B, K] chunked)
-    finished: torch.Tensor  # [B]
+    finished: torch.Tensor  # [B], after the last frame
+    # The port's additions, which the engine accounts frame by frame:
+    slow_token: Optional[torch.Tensor] = None  # [B] ([B, K] chunked)
+    finished_frames: Optional[torch.Tensor] = None  # [B, K] after each frame (chunked)
 
 
 def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
@@ -46,7 +49,8 @@ def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Genera
         mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
                                            out.audio_codes[:, :, None])
         return state, mimi_state, generator, StreamStepOutput(
-            pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio, finished=out.finished
+            pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio, finished=out.finished,
+            slow_token=out.slow_token,
         )
 
     return step
@@ -65,7 +69,8 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
         mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
                                            out.audio_codes[:, :, None])
         return state, mimi_state, generator, StreamStepOutput(
-            pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio, finished=out.finished
+            pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio, finished=out.finished,
+            slow_token=out.slow_token,
         )
 
     return step
@@ -77,14 +82,14 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
     """(lm_params, mimi_params, state, mimi_state, generator) ->
     (state', mimi_state', generator, StreamStepOutput) over K =
     `frames_per_chunk` frames: PCM [B, K * 1920, 1], codes [B, ncb, K],
-    is_audio [B, K]. With `attend_limit` the caller guarantees max(pos) + K
-    <= attend_limit, and flushes between calls so the K frames fit the
-    tails."""
+    is_audio, slow tokens and finished flags [B, K]. With `attend_limit` the
+    caller guarantees max(pos) + K <= attend_limit, and flushes between calls
+    so the K frames fit the tails."""
     resolve_device(device)
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
-        pcm, codes, is_audio = [], [], []
+        pcm, codes, is_audio, slow, finished = [], [], [], [], []
         for _ in range(frames_per_chunk):
             state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
                                       attend_limit=attend_limit)
@@ -93,9 +98,12 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
             pcm.append(p)
             codes.append(out.audio_codes)
             is_audio.append(out.is_audio)
+            slow.append(out.slow_token)
+            finished.append(out.finished)
         return state, mimi_state, generator, StreamStepOutput(
             pcm=torch.cat(pcm, dim=1), audio_codes=torch.stack(codes, dim=-1),
             is_audio=torch.stack(is_audio, dim=-1), finished=state.finished,
+            slow_token=torch.stack(slow, dim=-1), finished_frames=torch.stack(finished, dim=-1),
         )
 
     return step

@@ -28,6 +28,8 @@ NVCC_FLAGS = [
 _lib = None
 _lock = threading.Lock()
 BUILD_SECONDS = None  # wall time of the last build (None when loaded from disk)
+BUILD_LOGS = {}  # source name -> nvcc output (ptxas -v) of the last build
+BUILD_TIMES = {}  # source name -> seconds its nvcc took in the last build
 
 
 def _nvcc() -> str:
@@ -70,9 +72,19 @@ def build(verbose: bool = False) -> Path:
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def wait(src, p):  # one thread per source, so each compile's own time is known
+        BUILD_LOGS[src.name] = p.communicate()[0]
+        BUILD_TIMES[src.name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(src, p)) for src, _, p in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     objs, errors = [], []
     for src, obj, p in procs:
-        log, _ = p.communicate()
+        log = BUILD_LOGS[src.name]
         if p.returncode != 0:
             errors.append(f"{src.name}:\n{log}")
         elif verbose:

@@ -9,7 +9,7 @@ Layouts are head-major, as the JAX package keeps them: q [B, H, hd], caches
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -81,6 +81,28 @@ def decode_attention_tailed_plain(
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TUNED_HEAD_DIMS = (32, 64, 128)  # the tuned kernel's templates; any other head_dim takes the generic one
+MAX_TUNED_W = 32768  # tail columns the tuned kernel compacts in shared memory; longer tails go generic
+MAX_HEAD_DIM = 8192  # the generic kernel keeps one head of q in shared memory
+MAX_BATCH = 65535  # rows are a grid axis
+
+
+class KernelPlan(NamedTuple):
+    """What one call of the CUDA kernel is given: sizes, the dtype and
+    history codes of `smoltts_decode_attention`, and which kernel serves it
+    ("tuned": hd 32/64/128 over a history of the compute dtype or int8 and a
+    tail of at most MAX_TUNED_W columns, with 16-byte loads; "generic": the
+    rest, f32 compute over a bf16 cache included, with scalar loads)."""
+
+    B: int
+    H: int
+    n_kv: int
+    hd: int
+    lim: int
+    W: int
+    dtype: int
+    hist: int
+    route: str
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -88,10 +110,23 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"decode_attention kernel: {msg}")
 
 
-def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, v_scale):
+def _aligned(t: torch.Tensor, *dims: int) -> bool:
+    """The base pointer and the strides of `dims` are whole 16-byte units."""
+    return t.data_ptr() % 16 == 0 and all((t.stride(d) * t.element_size()) % 16 == 0 for d in dims)
+
+
+def kernel_plan(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale=None,
+                v_scale=None) -> KernelPlan:
+    """Check the inputs of one kernel call and plan it, without a card (the
+    CPU tests call it). Every shape `decode_attention_tailed_plain` takes is
+    accepted: any batch, group size, tail length and head_dim (up to
+    MAX_HEAD_DIM). Refused with ValueError: dtypes the kernel has no variant
+    for, tensors on another device, rows that are not contiguous, and, on the
+    tuned route, data that is not 16-byte aligned."""
+    _require(q.dim() == 3, f"q shape {tuple(q.shape)}")
     B, H, hd = q.shape
-    _, n_kv, lim, _ = k_hist.shape
-    W = k_tail.shape[2]
+    _require(k_hist.dim() == 4 and k_tail.dim() == 4, "caches must be [B, n_kv, S, hd]")
+    n_kv, lim, W = k_hist.shape[1], k_hist.shape[2], k_tail.shape[2]
     dev = q.device
     _require(q.dtype in _DTYPE_CODE, f"q dtype {q.dtype}")
     kv8 = k_scale is not None
@@ -101,37 +136,46 @@ def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, 
     _require(store == q.dtype or (q.dtype == torch.float32 and store == torch.bfloat16),
              f"tail dtype {store} under {q.dtype} compute")
     hist_dtype = torch.int8 if kv8 else store
+    hist = (1 if kv8 else 0) + (0 if store == q.dtype else 2)
+    route = "tuned" if hd in TUNED_HEAD_DIMS and hist <= 1 and W <= MAX_TUNED_W else "generic"
+    tuned = route == "tuned"
+    _require(n_kv > 0 and H % n_kv == 0, f"{H} query heads over {n_kv} kv heads")
+    _require(0 < hd <= MAX_HEAD_DIM, f"head_dim {hd} (at most {MAX_HEAD_DIM})")
+    _require(B <= MAX_BATCH, f"batch {B} above {MAX_BATCH}")
+    _require(q.is_contiguous() and (not tuned or _aligned(q)), "q must be contiguous"
+             + (" and 16-byte aligned" if tuned else ""))
     for name, t in (("k_hist", k_hist), ("v_hist", v_hist)):
         _require(t.dtype == hist_dtype, f"{name} dtype {t.dtype}, expected {hist_dtype}")
         _require(t.device == dev, f"{name} on {t.device}")
         _require(t.stride(3) == 1 and t.stride(2) == hd, f"{name} rows must be contiguous")
-        _require(t.data_ptr() % 16 == 0 and (t.stride(0) * t.element_size()) % 16 == 0
-                 and (t.stride(1) * t.element_size()) % 16 == 0, f"{name} not 16-byte aligned")
+        _require(not tuned or _aligned(t, 0, 1), f"{name} not 16-byte aligned")
     _require(k_hist.stride() == v_hist.stride(), "k_hist and v_hist strides differ")
+    _require(tuple(k_hist.shape) == tuple(v_hist.shape) == (B, n_kv, lim, hd),
+             f"history shape {tuple(k_hist.shape)}")
     for name, t in (("k_tail", k_tail), ("v_tail", v_tail)):
         _require(t.dtype == store and t.is_contiguous() and t.device == dev,
                  f"{name} must be contiguous {store} on {dev}")
         _require(t.shape == (B, n_kv, W, hd), f"{name} shape {tuple(t.shape)}")
-        _require(t.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
-    _require(W <= 1024, f"tail length {W} above 1024")
+        _require(not tuned or _aligned(t), f"{name} not 16-byte aligned")
     for name, t, shape in (("pos", pos, (B,)), ("flushed", flushed, (B,)),
                            ("tail_pos", tail_pos, (B, W))):
         _require(t.dtype == torch.int32 and t.is_contiguous() and t.device == dev
                  and tuple(t.shape) == shape, f"{name} must be contiguous int32 {shape} on {dev}")
-    _require(tuple(k_hist.shape) == tuple(v_hist.shape) == (B, n_kv, lim, hd),
-             f"history shape {tuple(k_hist.shape)}")
-    _require(q.is_contiguous() and q.data_ptr() % 16 == 0 and H % n_kv == 0 and H // n_kv <= 8,
-             "q layout / group size")
-    _require(hd % 16 == 0 and hd in (64, 128), f"head_dim {hd}")
-    ssb = ssh = 0
     if kv8:
         _require(tuple(k_scale.shape) == tuple(v_scale.shape) == (B, n_kv, lim)
                  and k_scale.device == dev and v_scale.device == dev
                  and k_scale.stride() == v_scale.stride() and k_scale.stride(2) == 1
                  and k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
                  "kv8 scales must be f32 with unit stride over positions")
-        ssb, ssh = k_scale.stride(0), k_scale.stride(1)
-    out = torch.empty((B, H * hd), dtype=q.dtype, device=dev)
+    return KernelPlan(B, H, n_kv, hd, lim, W, _DTYPE_CODE[q.dtype], hist, route)
+
+
+def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, v_scale):
+    plan = kernel_plan(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale,
+                       v_scale)
+    kv8 = k_scale is not None
+    ssb, ssh = (k_scale.stride(0), k_scale.stride(1)) if kv8 else (0, 0)
+    out = torch.empty((plan.B, plan.H * plan.hd), dtype=q.dtype, device=q.device)
     lib = _build.lib()
     code = lib.smoltts_decode_attention(
         q.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
@@ -139,9 +183,8 @@ def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, 
         k_hist.stride(0), k_hist.stride(1), ssb, ssh,
         k_tail.data_ptr(), v_tail.data_ptr(),
         pos.data_ptr(), flushed.data_ptr(), tail_pos.data_ptr(), out.data_ptr(),
-        B, H, n_kv, hd, lim, W, _DTYPE_CODE[q.dtype],
-        (1 if kv8 else 0) + (0 if store == q.dtype else 2),
-        _build.stream_ptr(dev),
+        plan.B, plan.H, plan.n_kv, plan.hd, plan.lim, plan.W, plan.dtype, plan.hist,
+        _build.stream_ptr(q.device),
     )
     _build.check(code, "decode_attention")
     ops.LAUNCHES["decode_attention"] += 1

@@ -300,17 +300,101 @@ def test_declared_argtypes_mirror_c():
     assert len(want["smoltts_decode_attention"]) == 24
 
 
-@pytest.mark.parametrize("H,n_kv,hd,W,match", [
-    (12, 4, 72, 8, "head_dim 72"),
-    (18, 2, 64, 8, "group size"),
-    (12, 4, 64, 1040, "tail length"),
-], ids=["hd72", "group9", "tail1040"])
-def test_kernel_wrapper_refuses_what_the_kernel_cannot_take(H, n_kv, hd, W, match):
-    """Checked before anything is built or launched."""
-    B, lim = 2, 16
-    q = torch.zeros(B, H, hd)
-    kh = torch.zeros(B, n_kv, lim, hd)
-    kt = torch.zeros(B, n_kv, W, hd)
+def _plan_args(B, H, n_kv, hd, lim, W, dtype=torch.float32, kv8=False, store=None):
+    """Zero inputs of one kernel call on the CPU (the checks need no card)."""
+    store = store or dtype
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
-    with pytest.raises(ValueError, match=match):
-        A._kernel(q, kh, kh, kt, kt, i32(B), i32(B), i32(B, W), None, None)
+    hist = torch.zeros(B, n_kv, lim, hd, dtype=torch.int8 if kv8 else store)
+    tail = torch.zeros(B, n_kv, W, hd, dtype=store)
+    scale = torch.ones(B, n_kv, lim) if kv8 else None
+    return dict(q=torch.zeros(B, H, hd, dtype=dtype), k_hist=hist, v_hist=hist.clone(),
+                k_tail=tail, v_tail=tail.clone(), pos=i32(B), flushed=i32(B),
+                tail_pos=i32(B, W), k_scale=scale, v_scale=None if scale is None else scale.clone())
+
+
+@pytest.mark.parametrize("H,n_kv,hd,W,route", [
+    (12, 4, 72, 8, "generic"),
+    (18, 2, 64, 8, "tuned"),
+    (12, 4, 64, 1040, "tuned"),
+], ids=["hd72", "group9", "tail1040"])
+def test_kernel_wrapper_refuses_what_the_kernel_cannot_take(H, n_kv, hd, W, route):
+    """Checked before anything is built or launched. The kernel serves these
+    shapes (a head_dim without a template, a group above 8, a tail above
+    1024 columns); at them it still refuses a dtype it has no variant for,
+    rows that are not contiguous, index tensors that are not int32, and on
+    the tuned route data off 16-byte alignment."""
+    args = _plan_args(2, H, n_kv, hd, 16, W)
+    assert A.kernel_plan(**args).route == route
+    refused = [
+        ({"q": args["q"].half()}, "q dtype"),
+        ({"k_tail": args["k_tail"].bfloat16(), "v_tail": args["v_tail"].bfloat16(),
+          "q": args["q"].bfloat16(), "k_hist": args["k_hist"].half(),
+          "v_hist": args["v_hist"].half()}, "k_hist dtype"),
+        ({"k_hist": args["k_hist"].transpose(2, 3).contiguous().transpose(2, 3),
+          "v_hist": args["v_hist"].transpose(2, 3).contiguous().transpose(2, 3)},
+         "rows must be contiguous"),
+        ({"tail_pos": args["tail_pos"].long()}, "tail_pos must be contiguous int32"),
+        ({"k_scale": torch.ones(2, n_kv, 16)}, "k_scale and v_scale come together"),
+    ]
+    if route == "tuned":
+        off = torch.zeros(args["q"].numel() + 1)[1:].view(args["q"].shape)  # 4 bytes off
+        refused.append(({"q": off}, "16-byte aligned"))
+    for change, match in refused:
+        with pytest.raises(ValueError, match=match):
+            A._kernel(**{**args, **change})
+
+
+@pytest.mark.parametrize("dtype,kv8,store", [
+    (torch.bfloat16, True, None), (torch.bfloat16, False, None), (torch.float32, True, None),
+    (torch.float32, False, None), (torch.float32, False, torch.bfloat16),
+    (torch.float32, True, torch.bfloat16),
+], ids=["bf16_kv8", "bf16", "f32_kv8", "f32", "f32_over_bf16", "f32_over_bf16_kv8"])
+@pytest.mark.parametrize("B,H,n_kv,hd,lim,W", [
+    (8, 12, 4, 64, 64, 2048), (8, 12, 1, 64, 32, 128), (2, 12, 4, 32, 32, 16),
+    (2, 2, 1, 32, 32, 16), (2, 12, 4, 96, 32, 16), (1, 12, 1, 96, 32, 2048),
+    (1, 64, 1, 256, 8, 4), (1, 3, 3, 8, 8, 4), (1, 4, 2, 33, 8, 3), (1, 4, 1, 64, 8, 40000),
+], ids=["W2048", "G12", "hd32", "hd32_tiny", "hd96", "hd96_G12_W2048", "G64_hd256",
+        "hd8_G1", "hd33", "W40000"])
+def test_kernel_plan_accepts_every_shape_jax_takes(B, H, n_kv, hd, lim, W, dtype, kv8, store):
+    """No shape that JAX's decode_attention_tailed takes is refused: the
+    tuned kernel takes hd 32/64/128 over a history of the compute dtype or
+    int8 (any group, via tiles of 8 heads; a tail of up to MAX_TUNED_W
+    columns, compacted in shared memory), the generic kernel every other
+    head_dim, longer tails and f32 compute over a bf16 cache."""
+    plan = A.kernel_plan(**_plan_args(B, H, n_kv, hd, lim, W, dtype, kv8, store))
+    tuned = hd in (32, 64, 128) and store is None and W <= A.MAX_TUNED_W
+    assert plan.route == ("tuned" if tuned else "generic")
+    assert (plan.B, plan.H, plan.n_kv, plan.hd, plan.lim, plan.W) == (B, H, n_kv, hd, lim, W)
+    assert plan.hist == (1 if kv8 else 0) + (2 if store is not None else 0)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["f32_history", "kv8_history"])
+@pytest.mark.parametrize("shape", ["W2048", "G12", "hd32", "hd96"])
+def test_tailed_wide_shapes_match_jax(shape, kv8):
+    """The plain version (the kernel's yardstick on the card) equals JAX's
+    decode_attention_tailed at a tail of 2048 columns, a group of 12 over one
+    kv head, and head dims 32 and 96."""
+    B, H, n_kv, hd, Sh, W = {"W2048": (2, 12, 4, 64, 16, 2048), "G12": (2, 12, 1, 64, 48, 16),
+                             "hd32": (2, 12, 4, 32, 48, 16), "hd96": (2, 12, 4, 96, 48, 16)}[shape]
+    rng = np.random.default_rng(11)
+    q, kt, vt = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, H, hd), (B, n_kv, W, hd), (B, n_kv, W, hd)))
+    kh, vh = (rng.standard_normal((B, n_kv, Sh, hd)).astype(np.float32) for _ in "kv")
+    flushed = np.asarray([Sh // 2, Sh], np.int32)
+    pos = flushed + np.asarray([W // 2, W - 3], np.int32)
+    tail_pos = np.full((B, W), -1, np.int32)
+    for b in range(B):
+        cols = rng.permutation(W)[: pos[b] - flushed[b] + 1]  # both sides of 1024 at W 2048
+        tail_pos[b, cols] = np.arange(flushed[b], pos[b] + 1)
+    jargs = dict(q=jnp.asarray(q), k_tail=jnp.asarray(kt), v_tail=jnp.asarray(vt),
+                 pos=jnp.asarray(pos), flushed=jnp.asarray(flushed), tail_pos=jnp.asarray(tail_pos))
+    if kv8:
+        kq, ks = jax_quantize_kv(jnp.asarray(kh))
+        vq, vs = jax_quantize_kv(jnp.asarray(vh))
+        jargs.update(k_hist=kq, v_hist=vq, k_scale=ks, v_scale=vs)
+    else:
+        jargs.update(k_hist=jnp.asarray(kh), v_hist=jnp.asarray(vh))
+    targs = {k: _t(v) for k, v in jargs.items()}
+    ref = np.asarray(jax_tailed(**jargs))
+    np.testing.assert_allclose(decode_attention_tailed_plain(**targs).numpy(), ref, **TOL)
+    assert A.kernel_plan(**targs).route == ("generic" if hd == 96 else "tuned")

@@ -132,3 +132,72 @@ def test_config_tokenizer_and_prompt_match_jax():
                          (jpe.encode_text_turn("assistant"), pe.encode_text_turn("assistant")),
                          (jpe.encode_vq(codes), pe.encode_vq(codes))):
         np.testing.assert_array_equal(tturn, jturn)
+
+
+def _past_s_states(kv8):
+    """The same decode state in both packages: random history and tails, and
+    tail columns whose positions reach S and beyond (a freed engine slot keeps
+    advancing), beside a stale column and columns at pos (not yet flushed)."""
+    jcfg, cfg = jax_tiny(codebook_size=CB), tiny_debug_config(codebook_size=CB)
+    B, S, W = 3, 16, 8
+    rng = np.random.default_rng(4)
+    js = jd.init_decode_state(jcfg, B, S, dtype=jnp.int8 if kv8 else jnp.float32, tail_len=W)
+    hist = js.k.shape
+    if kv8:
+        k, v = (jnp.asarray(rng.integers(-127, 128, hist), jnp.int8) for _ in "kv")
+        ks, vs = (jnp.asarray(rng.uniform(0.01, 0.1, hist[:-1]), jnp.float32) for _ in "kv")
+    else:
+        k, v = (jnp.asarray(rng.standard_normal(hist), jnp.float32) for _ in "kv")
+        ks = vs = None
+    kt, vt = (jnp.asarray(rng.standard_normal(js.k_tail.shape), js.k_tail.dtype) for _ in "kv")
+    flushed = np.asarray([10, 14, 16], np.int32)
+    pos = np.asarray([14, 18, 21], np.int32)
+    tail_pos = np.full((B, W), -1, np.int32)
+    for b in range(B):
+        tail_pos[b, : pos[b] - flushed[b] + 1] = np.arange(flushed[b], pos[b] + 1)
+    tail_pos[2, 7] = 3  # stale: below flushed
+    js = js._replace(k=k, v=v, k_tail=kt, v_tail=vt, tail_pos=jnp.asarray(tail_pos),
+                     flushed=jnp.asarray(flushed), pos=jnp.asarray(pos),
+                     phase=jnp.asarray(6, jnp.int32), k_scale=ks, v_scale=vs)
+    ts = td.DecodeState(**{f: (None if getattr(js, f) is None
+                               else params_from_jax_numpy({"x": np.asarray(getattr(js, f))})["x"])
+                           for f in td.DecodeState._fields})
+    return js, ts._replace(phase=ts.phase.long())
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["f32", "kv8"])
+def test_flush_kv_drops_positions_past_S_as_jax(kv8):
+    """Tail entries at positions S or more are dropped, as the JAX package's
+    scatter (mode="drop") drops them; the rest is written as JAX writes it,
+    quantized per vector in kv8."""
+    js, ts = _past_s_states(kv8)
+    want = jd.flush_kv(js)
+    got = td.flush_kv(ts)
+    for f in ("k", "v", "k_scale", "v_scale", "tail_pos", "flushed", "phase", "pos"):
+        a, b = getattr(got, f), getattr(want, f)
+        if b is not None:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(a.numpy().dtype), err_msg=f)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["f32", "kv8"])
+@pytest.mark.parametrize("T", [1, 4])
+def test_write_kv_past_S_as_jax(T, kv8):
+    """A prefill write past the cache's end does what JAX's does: one token
+    at position S or more is dropped (`.at[].set`), a block of T > 1 starts
+    at most at S - T (`dynamic_update_slice`)."""
+    B, H, S, hd = 3, 2, 8, 4
+    rng = np.random.default_rng(5)
+    cache = rng.standard_normal((B, H, S, hd)).astype(np.float32)
+    new = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    pos = np.asarray([1, S - 2, S + 1], np.int32)
+    if kv8:
+        jc, jsc = jnp.asarray(rng.integers(-127, 128, cache.shape), jnp.int8), jnp.ones((B, H, S))
+        wc, wsc = jd._write_kv(jc, jnp.asarray(new), jnp.asarray(pos), jsc)
+        tc, tsc = torch.from_numpy(np.array(jc)), torch.ones(B, H, S)
+    else:
+        wc, wsc = jd._write_kv(jnp.asarray(cache), jnp.asarray(new), jnp.asarray(pos))
+        tc, tsc = torch.from_numpy(cache.copy()), None
+    td._write_kv(tc, torch.from_numpy(new), torch.from_numpy(pos), tsc)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(wc))
+    if kv8:
+        np.testing.assert_array_equal(tsc.numpy(), np.asarray(wsc))

@@ -63,7 +63,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                               ROOT / "scripts" / "torch_k1_products.py",
-                                                              ROOT / "scripts" / "torch_k3_threads.py"],
+                                                              ROOT / "scripts" / "torch_k3_threads.py",
+                                                              ROOT / "scripts" / "torch_k2_build.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_static_scan_has_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in BLOCKED]
@@ -77,6 +78,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from smoltts_torch.config import tiny_debug_config
     from smoltts_torch.io.checkpoint import load_params
     from smoltts_torch.lm.decode import init_decode_state
+    from smoltts_torch.lm.engine import DecodeEngine
     from smoltts_torch.lm.generate import generate_blocking, make_device_generator
     from smoltts_torch.lm.pipeline import (
         make_chunk_step, make_flush_step, make_prefill_step, make_stream_step,
@@ -99,6 +101,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: make_chunk_step(cfg, tok, settings, mcfg, 8),
         lambda: make_device_generator(cfg, tok, settings, 8),
         lambda: generate_blocking({}, cfg, tok, settings, [np.zeros((cfg.num_rows, 4), np.int32)]),
+        lambda: DecodeEngine({}, cfg, tok, settings, num_slots=1, max_seq_len=16),
         # no file is read before the device check
         lambda: SmolTTS(tmp_path / "missing"),
         lambda: load_params(tmp_path / "missing", cfg),
