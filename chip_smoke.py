@@ -48,6 +48,19 @@ Phases:
      point (64 slots, 128 streams closed-loop, int8+kv8, chunk 8) with
      audio-s/s, first-audio percentiles, the pop_timing breakdown and
      K1-K3 launches per frame step
+  9  the HTTP server (smoltts_torch.server) on phase 7's kind of checkpoint,
+     on 127.0.0.1: (i) greedy f32 int8 with build_engine_loop(core, 8):
+     /health, /, /metrics, /v1/audio/speech, ElevenLabs pcm_24000,
+     wav_16000, ulaw_8000 and mp3_44100_128; 4 concurrent /stream requests
+     beside 2 blocking ones: each stream body is the engine's int16 frames
+     for it, in order, with the codes of the prompt's B=1 single stream and
+     its PCM; each blocking body == pcm_to_int16(model(text)); the server
+     started as `main` starts it (a subprocess, load_core from a settings
+     JSON) answers /health; (ii) int8+kv8 sampled, build_engine_loop(core,
+     64): closed loops of 64 HTTP /stream clients and 128 requests, alone
+     (the card's idle share over a 2 s window) and with 4 blocking requests:
+     audio-s/s at the socket, client first-chunk p50 / p95, /metrics, K1-K3
+     launches per frame step, beside phase 8 (ii)'s rate
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -82,6 +95,12 @@ K1_BF16_LEVEL0_GATE = 0.9  # see phase 3
 K3_NEAR_TIE = 1e-5  # kernel vs emulation: a differing id's noisy score, relative (phase 4)
 K3_MS_GATE = 0.005  # K3's own device ms per call at B=64, V=2368, bf16, sampled
 REPEATS = 3  # measured passes of the main path (phase 5)
+# Phase 9 (i): a /stream body against the prompt's B=1 single stream. The
+# server's engine keeps its vocoder state, and so its PCM, in bf16 (8
+# significant bits, 48 dB for one rounding), and the card's kernels round it
+# differently at the engine's shapes than at B=1; one misplaced or corrupted
+# frame of 24 brings a stream to ~14 dB.
+STREAM_SNR_GATE = 30.0
 K1_KERNELS = re.compile(r"\b(gemm_i8|fast_attn|fast_sample|init_h)\b")  # csrc/fast_loop.cu
 K3_KERNEL = re.compile(r"\bsample_tokens_kernel\b")  # csrc/sampling.cu
 PORT_KERNELS = re.compile(r"\b(decode_attn_kernel|sample_tokens_kernel)\b")  # K2, K3
@@ -340,6 +359,120 @@ def mimi_hf_state(params, cfg) -> dict:
     return {k: v.contiguous() for k, v in st.items()}
 
 
+# ---- the HTTP server (phase 9) ----------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def port_open(port: int) -> bool:
+    import socket
+
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=0.2):
+            return True
+    except OSError:
+        return False
+
+
+def serve_app(app):
+    """Run an HttpServer on a free 127.0.0.1 port in a thread: (port, thread)."""
+    import threading
+
+    port = free_port()
+    th = threading.Thread(target=app.run, args=("127.0.0.1", port), daemon=True)
+    th.start()
+    deadline = time.time() + 60
+    while not port_open(port):
+        check(time.time() < deadline and th.is_alive(), "the server did not start")
+        time.sleep(0.05)
+    return port, th
+
+
+def stop_app(app, th) -> None:
+    app.stop()
+    th.join(timeout=30)
+    check(not th.is_alive(), "the server thread did not stop")
+
+
+def request(port, method, path, body=None, timeout=600):
+    """(status, {header: value}, body bytes) of one HTTP request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+    finally:
+        conn.close()
+
+
+def run_threads(jobs: dict, timeout=600) -> dict:
+    """Run each callable of `jobs` on its own thread at once: {key: result}."""
+    import threading
+
+    results, errors = {}, []
+
+    def run(key, fn):
+        try:
+            results[key] = fn()
+        except Exception as e:  # reported below: a failed request fails the phase
+            errors.append((key, repr(e)))
+
+    threads = [threading.Thread(target=run, args=kv, daemon=True) for kv in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    check(not any(t.is_alive() for t in threads), "a request thread hung")
+    check(not errors, f"requests failed: {errors[:3]}")
+    return results
+
+
+def tap_loop(loop):
+    """Record what an EngineLoop serves: each stream's prompt, the frames it
+    emitted in emission order, and the frame indices before which the
+    engine flushed while the stream was live."""
+    from types import SimpleNamespace
+
+    eng, rec = loop.engine, SimpleNamespace(prompts={}, frames={}, flushes={})
+    submit, emit, flush = loop.submit, loop._emit, eng._flush
+
+    def tapped_submit(prompt, max_frames=None):
+        q = submit(prompt, max_frames)
+        rec.prompts[q.sid] = np.asarray(prompt)
+        return q
+
+    def tapped_emit(frames):
+        for sid, frame in frames:
+            rec.frames.setdefault(sid, []).append(frame)
+        emit(frames)
+
+    def tapped_flush(state, mstate):
+        for sid, h in eng._streams.items():
+            if h.slot >= 0:
+                rec.flushes.setdefault(sid, []).append(1 + h.frames_dispatched)
+        return flush(state, mstate)
+
+    loop.submit, loop._emit, eng._flush = tapped_submit, tapped_emit, tapped_flush
+    return rec
+
+
+SERVER_TEXTS = [
+    "Hello there, this is the server speaking on the card.",
+    "Streaming speech over HTTP, one frame at a time.",
+    "The quick brown fox jumps over the lazy dog.",
+    "Numbers: one, two, three, four, five.",
+]
+
+
 class Smoke:
     K1_DRAWS = 8192  # level-0 draws of one hidden row (phase 3)
     K3_DRAWS = 131072  # draws of one logits row (phase 4)
@@ -353,6 +486,7 @@ class Smoke:
         self.failures = []
         self._lm = None
         self.stream_rate = None  # phase 5's median audio-s/s, shown beside phase 7's chunk step
+        self.served_rates = []  # phase 8 (ii)'s audio-s/s per rep, shown beside phase 9 (ii)
 
     # ---- shared state -------------------------------------------------------
 
@@ -1670,6 +1804,7 @@ class Smoke:
                     admits = eng.stats["admissions"] - before["admissions"]
                     dispatches = eng.stats["dispatches"] - before["dispatches"]
                 rate, p50, p95, steady, bd, frames, elapsed = out
+                self.served_rates.append(rate)
                 per = {k: round(v / steps, 4) for k, v in counts.items()}
                 log(f"[8 served] rep {rep} on {smi}: {rate} audio-s/s ({frames} frames in "
                     f"{elapsed:.2f} s), first audio p50 {p50:.1f} ms, p95 {p95:.1f} ms, steady p50 "
@@ -1681,6 +1816,338 @@ class Smoke:
         finally:
             loop.stop()
         log(f"[8 served] warm {t_warm:.1f} s; served segment {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 9: the HTTP server ------------------------------------------
+
+    def phase9_server(self):
+        t0 = time.perf_counter()
+        smi = nvidia_smi()
+        cfg = self.lm()[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            self._write_checkpoint(d, cfg)
+            self._server_parity(d, smi)
+            self._server_main(d, smi)
+            self._server_load(d, smi)
+        log(f"[9 server] phase 9 took {time.perf_counter() - t0:.1f} s on {smi}")
+
+    def _server_single(self, core, engine, prompt, n_frames, flush_before):
+        """A prompt alone at B=1 through make_prefill_step + make_stream_step,
+        with the engine's KV and vocoder-state dtype, prompt bucket and attend
+        limit, and its schedule: the admission's ring flush after the first
+        frame (`scatter_stream_state`), and an engine flush before each frame
+        in `flush_before`. Returns (codes [n, 8], int16 PCM)."""
+        from smoltts_torch.codec.mimi import decode_stream_init
+        from smoltts_torch.codec.transformer import flush_transformer_ring
+        from smoltts_torch.io.wav import pcm_to_int16
+        from smoltts_torch.lm.decode import init_decode_state
+        from smoltts_torch.lm.generate import pad_prompts
+        from smoltts_torch.lm.pipeline import make_flush_step, make_prefill_step, make_stream_step
+
+        torch, dev, m = self.torch, self.dev, core.model
+        args = (m.config, m.token_config, m.generation_settings, m.codec_config)
+        state = init_decode_state(m.config, 1, engine.S, dtype=engine.kv_dtype, device=dev)
+        ms = decode_stream_init(m.codec_config, 1, dtype=engine.kv_dtype, device=dev)
+        padded, lens = pad_prompts([prompt], pad_to_multiple=engine.prompt_bucket)
+        state, ms, _, out = make_prefill_step(*args, device=dev)(
+            m.params, m.codec_params, state, ms, torch.from_numpy(padded).to(dev),
+            torch.from_numpy(lens).to(dev), None)
+        ms = ms._replace(transformer=flush_transformer_ring(ms.transformer))
+        step = make_stream_step(*args, attend_limit=engine.attend_buckets[0], device=dev)
+        flush = make_flush_step(device=dev)
+        outs = [out]
+        for f in range(1, n_frames):
+            if f in flush_before:
+                state, ms = flush(state, ms)
+            state, ms, _, out = step(m.params, m.codec_params, state, ms, None)
+            outs.append(out)
+        codes = torch.stack([o.audio_codes[0] for o in outs]).cpu().numpy()
+        pcm = torch.cat([o.pcm[0, :, 0] for o in outs]).float().cpu().numpy()
+        return codes, pcm_to_int16(pcm)
+
+    def _server_parity(self, d: Path, smi):
+        """(i) Greedy f32 int8 with build_engine_loop(core, 8): every route,
+        four ElevenLabs formats, then 4 /stream and 2 blocking requests at
+        once, each held against its reference."""
+        from smoltts_torch import SmolTTS
+        from smoltts_torch.io.mp3 import lame_available
+        from smoltts_torch.io.wav import pcm_to_int16
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.server.app import build_app, build_engine_loop
+        from smoltts_torch.server.tts_core import TTSCore
+
+        torch = self.torch
+        greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0, max_new_tokens=24,
+                                    audio_only_constraint=True)
+        torch.backends.cudnn.deterministic = True  # blocking bodies vs a later direct call
+        try:
+            core = TTSCore(SmolTTS(d, dtype=torch.float32, quantize="int8", generation_settings=greedy))
+            hop = core.model.codec_config.samples_per_frame
+            t0 = time.perf_counter()
+            loop = build_engine_loop(core, 8)
+            t_warm = time.perf_counter() - t0
+            rec = tap_loop(loop)
+            app = build_app(core, engine_loop=loop)
+            port, th = serve_app(app)
+            try:
+                routes = self._server_routes(port, hop)
+                t0 = time.perf_counter()
+                jobs = {("stream", t): (lambda t=t: request(
+                    port, "POST", "/v1/text-to-speech/bella/stream", {"text": t})) for t in SERVER_TEXTS}
+                for t in SERVER_TEXTS[:2]:
+                    jobs[("pcm", t)] = lambda t=t: request(
+                        port, "POST", "/v1/text-to-speech/bella?output_format=pcm_24000", {"text": t})
+                results = run_threads(jobs)
+                t_concurrent = time.perf_counter() - t0
+            finally:
+                stop_app(app, th)
+                loop.stop()
+            blocking_equal, lsb, snrs, bad = [], 0, [], []
+            for (kind, text), (status, headers, body) in results.items():
+                check(status == 200, f"{kind} {text!r}: HTTP {status}")
+                check(len(body) > 0 and len(body) % (2 * hop) == 0, f"{kind}: {len(body)} bytes")
+                if kind == "pcm":
+                    blocking_equal.append(body == pcm_to_int16(core.model(text, "bella")).tobytes())
+                    continue
+                prompt = core.model._get_prompt(text, "bella")
+                sid = next(s for s, p in rec.prompts.items() if np.array_equal(p, prompt))
+                frames = rec.frames[sid]
+                if body != b"".join(f["pcm"].tobytes() for f in frames):
+                    bad.append(f"{text!r}: body is not the engine's frames")
+                codes, want = self._server_single(core, loop.engine, prompt, len(frames),
+                                                  rec.flushes.get(sid, ()))
+                if not np.array_equal(np.stack([f["audio_codes"] for f in frames]), codes):
+                    bad.append(f"{text!r}: codes differ from the B=1 single stream")
+                got = np.frombuffer(body, np.int16).astype(np.float64)
+                err = got - want
+                lsb = max(lsb, int(np.abs(err).max()))
+                snrs.append(round(float(10 * np.log10((want.astype(np.float64) ** 2).sum()
+                                                      / max((err ** 2).sum(), 1.0))), 2))
+            flushes = {s: f for s, f in rec.flushes.items() if f}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        log(f"[9 server] (i) on {smi}: greedy f32 int8, build_engine_loop(core, 8) warm "
+            f"{t_warm:.1f} s; routes {routes}; 4 /stream + 2 blocking pcm_24000 at once in "
+            f"{t_concurrent:.2f} s: stream bodies vs the B=1 single stream max {lsb} LSB, SNR dB "
+            f"{snrs} (gate {STREAM_SNR_GATE}); failures {bad}; "
+            f"engine flushes inside a stream {flushes}; blocking bodies == "
+            f"pcm_to_int16(model(text)): {blocking_equal}; MP3 served by "
+            f"{'LAME (Layer III)' if lame_available() else 'the Layer II encoder'}")
+        check(not bad and len(snrs) == 4 and min(snrs) >= STREAM_SNR_GATE,
+              "stream bodies differ from the single stream")
+        check(len(blocking_equal) == 2 and all(blocking_equal), "blocking bodies differ")
+
+    def _server_routes(self, port, hop) -> dict:
+        """Every route once; returns {route: (status, bytes)} for the log."""
+        from smoltts_torch.io.mp3 import lame_available, mpeg_header_info
+
+        out = {}
+        status, _, body = request(port, "GET", "/health")
+        check(status == 200 and json.loads(body)["sampling_rate"] == 24_000, f"/health {status}")
+        out["/health"] = (status, len(body))
+        status, _, body = request(port, "GET", "/")
+        check(status == 200 and b"smoltts" in body, f"/ {status}")
+        out["/"] = (status, len(body))
+        status, _, body = request(port, "GET", "/metrics")
+        check(status == 200 and "requests" in json.loads(body), f"/metrics {status}")
+        out["/metrics"] = (status, len(body))
+        status, headers, body = request(port, "POST", "/v1/audio/speech",
+                                        {"input": SERVER_TEXTS[0], "voice": "bella"})
+        check(status == 200 and headers["content-type"] == "audio/wav" and body[:4] == b"RIFF"
+              and len(body) > 44 and (len(body) - 44) % (2 * hop) == 0, f"/v1/audio/speech {status}")
+        out["/v1/audio/speech"] = (status, len(body))
+        n = None
+        for fmt, media in (("pcm_24000", "audio/x-pcm"), ("wav_16000", "audio/wav"),
+                           ("ulaw_8000", "audio/basic"), ("mp3_44100_128", "audio/mpeg")):
+            status, headers, body = request(port, "POST", f"/v1/text-to-speech/bella?output_format={fmt}",
+                                            {"text": SERVER_TEXTS[1]})
+            rate = int(fmt.split("_")[1])
+            ok = (status == 200 and headers["content-type"] == media
+                  and headers["x-sample-rate"] == str(rate))
+            if fmt == "pcm_24000":
+                n = len(body) // 2
+                ok = ok and n > 0 and n % hop == 0
+            elif fmt == "wav_16000":
+                ok = ok and len(body) == 44 + 2 * int(n * rate / 24_000)
+            elif fmt == "ulaw_8000":
+                ok = ok and len(body) == int(n * rate / 24_000)
+            else:
+                layer = mpeg_header_info(body)["layer"]
+                ok = ok and layer == (3 if lame_available() else 2)
+            check(ok, f"ElevenLabs {fmt}: HTTP {status}, {headers}, {len(body)} bytes")
+            out[fmt] = (status, len(body))
+        return out
+
+    def _server_main(self, d: Path, smi):
+        """The server as `python -m smoltts_torch.server.app` starts it: a
+        settings JSON naming the checkpoint, load_core, per-request mode."""
+        cfg_path = d / "server.json"
+        cfg_path.write_text(json.dumps({"checkpoint_dir": str(d), "generation": {
+            "default_temp": 0.0, "default_fast_temp": 0.0, "max_new_tokens": 8}}))
+        port = free_port()
+        t0 = time.perf_counter()
+        with open(d / "server.log", "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "smoltts_torch.server.app", "--config", str(cfg_path),
+                 "--host", "127.0.0.1", "--port", str(port)],
+                cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+            try:
+                deadline = time.time() + 240
+                while not port_open(port):
+                    check(proc.poll() is None and time.time() < deadline,
+                          f"the server process did not come up (exit {proc.poll()})")
+                    time.sleep(0.2)
+                t_up = time.perf_counter() - t0
+                status, _, body = request(port, "GET", "/health")
+                check(status == 200 and json.loads(body)["sampling_rate"] == 24_000, f"/health {status}")
+                status, _, pcm = request(port, "POST", "/v1/text-to-speech/0?output_format=pcm_24000",
+                                         {"text": "Hello from main."})
+                check(status == 200 and len(pcm) % (2 * 1920) == 0, f"blocking {status} {len(pcm)}")
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+        log(f"[9 server] main on {smi}: `python -m smoltts_torch.server.app --config` answered "
+            f"/health {t_up:.1f} s after start; a blocking pcm_24000 request gave {len(pcm)} bytes; "
+            f"server log: {(d / 'server.log').read_text().strip().splitlines()[:2]}")
+
+    def _server_load(self, d: Path, smi):
+        """(ii) int8+kv8 sampled (0.7 / 0.7 / min-p 0.05, 96 frames), the
+        server's engine at 64 slots: closed loops of 64 HTTP /stream clients,
+        128 requests each, after a shakedown of 8 clients / 16 requests;
+        first alone (with a 2 s profiler window 10 s in: the card's idle
+        share), then with 4 blocking /v1/audio/speech requests starting one
+        second in. Launches are read around each run: the blocking requests'
+        own frames are what K1 counts beyond the engine's."""
+        import http.client
+        import threading
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from smoltts_torch import SmolTTS, VOICES, ops
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.server.app import build_app, build_engine_loop
+        from smoltts_torch.server.tts_core import TTSCore
+
+        sampled = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05,
+                                     max_new_tokens=96, audio_only_constraint=True)
+        core = TTSCore(SmolTTS(d, quantize="int8+kv8", generation_settings=sampled, seed=9))
+        hop = core.model.codec_config.samples_per_frame
+        n_layer = core.model.config.n_layer
+        t0 = time.perf_counter()
+        loop = build_engine_loop(core, 64)
+        t_warm = time.perf_counter() - t0
+        eng = loop.engine
+        app = build_app(core, engine_loop=loop)
+        port, th = serve_app(app)
+
+        def pct(vals, p):
+            vals = sorted(vals)
+            return vals[min(len(vals) - 1, int(p * len(vals)))]
+
+        def closed(clients, total, blocking=0, profile_at=None):
+            lock = threading.Lock()
+            issued, firsts, nbytes, failures, walls = [0], [], [0], [], []
+
+            def client():
+                while True:
+                    with lock:
+                        if issued[0] >= total:
+                            return
+                        i = issued[0]
+                        issued[0] += 1
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                    t = time.perf_counter()
+                    conn.request("POST", f"/v1/text-to-speech/{VOICES[i % len(VOICES)]}/stream",
+                                 json.dumps({"text": SERVER_TEXTS[i % len(SERVER_TEXTS)]}),
+                                 {"Content-Type": "application/json"})
+                    r = conn.getresponse()
+                    head = r.read(2)  # returns once the first chunk is in
+                    first = time.perf_counter() - t
+                    body = head + r.read()
+                    conn.close()
+                    with lock:
+                        firsts.append((i >= clients, first * 1e3))
+                        nbytes[0] += len(body)
+                        if r.status != 200 or not body or len(body) % (2 * hop):
+                            failures.append(f"stream {i}: HTTP {r.status}, {len(body)} bytes")
+
+            def speech(j):
+                time.sleep(1.0)
+                t = time.perf_counter()
+                status, headers, body = request(port, "POST", "/v1/audio/speech",
+                                                {"input": SERVER_TEXTS[j], "voice": VOICES[j]})
+                with lock:
+                    walls.append(round(time.perf_counter() - t, 2))
+                    if (status != 200 or body[:4] != b"RIFF" or len(body) <= 44
+                            or (len(body) - 44) % (2 * hop)):
+                        failures.append(f"speech {j}: HTTP {status}, {len(body)} bytes")
+
+            with loop._lock:
+                ops.reset_launch_counts()
+                before = dict(eng.stats)
+            threads = [threading.Thread(target=client, daemon=True) for _ in range(clients)]
+            threads += [threading.Thread(target=speech, args=(j,), daemon=True) for j in range(blocking)]
+            t_start = time.perf_counter()
+            for t in threads:
+                t.start()
+            idle = "not measured"
+            if profile_at is not None:
+                time.sleep(profile_at)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    time.sleep(2.0)
+                    window = time.perf_counter() - t
+                kernels = trace_kernels(prof)
+                check(kernels, "the profiler window over the served run saw no kernel")
+                idle = round(1.0 - busy_us(kernels) / (window * 1e6), 4)
+            for t in threads:
+                t.join(timeout=600)
+            elapsed = time.perf_counter() - t_start
+            check(not any(t.is_alive() for t in threads), f"served run wedged: {issued}")
+            check(not failures, f"served run: {failures[:3]}")
+            with loop._lock:
+                counts = dict(ops.LAUNCHES)
+                steps = eng.stats["frame_steps"] - before["frame_steps"]
+                admits = eng.stats["admissions"] - before["admissions"]
+            all_ms = [ms for _, ms in firsts]
+            steady = [ms for s, ms in firsts if s] or all_ms
+            # K1 and K3 run once per frame step and admission, and once per
+            # frame of a blocking request; K2 once per layer of each frame
+            # step and of each blocking frame after the first.
+            extra = counts["fast_loop"] - steps - admits
+            expect = {"fast_loop": steps + admits + extra, "sample_categorical": steps + admits + extra,
+                      "decode_attention": n_layer * (steps + extra - blocking)}
+            log(f"[9 server] (ii) on {smi}: {clients} HTTP /stream clients, {total} requests"
+                f"{f' + {blocking} blocking' if blocking else ''}: {nbytes[0] / 2 / 24_000 / elapsed} "
+                f"audio-s/s at the socket ({nbytes[0]} bytes in {elapsed:.2f} s); client first chunk "
+                f"p50 {pct(all_ms, 0.5):.1f} ms, p95 {pct(all_ms, 0.95):.1f} ms (steady p50 "
+                f"{pct(steady, 0.5):.1f}, p95 {pct(steady, 0.95):.1f}); blocking wall s {walls}; "
+                f"{steps} frame steps, {admits} admissions, {extra} blocking frames; launches "
+                f"{counts}, engine's per frame step "
+                f"{round((steps + admits) / max(steps, 1), 4)} (K1, K3) and "
+                f"{round(n_layer * steps / max(steps, 1), 4)} (K2); device idle share {idle}")
+            check(steps > 0 and (0 < extra <= 96 * blocking if blocking else extra == 0)
+                  and counts == expect,
+                  f"served launches {counts}, expected {expect} with {extra} blocking frames")
+
+        try:
+            closed(8, 16)  # shakedown
+            closed(64, 128, profile_at=10.0)
+            closed(64, 128, blocking=4)
+            status, _, body = request(port, "GET", "/metrics")
+            metrics = json.loads(body)
+        finally:
+            stop_app(app, th)
+            loop.stop()
+        direct = [round(r, 2) for r in self.served_rates] or "not measured (phase 8 not run)"
+        log(f"[9 server] (ii) int8+kv8 sampled, build_engine_loop(core, 64) warm {t_warm:.1f} s; "
+            f"/metrics after both runs {json.dumps(metrics)}; phase 8 (ii) direct EngineLoop in "
+            f"this call: {direct} audio-s/s")
+        check(metrics["requests"] >= 16 + 2 * 128, f"/metrics requests {metrics['requests']}")
 
     def _f32_trees(self):
         """Phase 6's trees: 150M f32 int8 LM and the Mimi f32 int8 tree."""
@@ -1703,7 +2170,7 @@ class Smoke:
         table = [
             (1, self.phase1_build), (2, self.phase2_attention), (3, self.phase3_fast_loop),
             (4, self.phase4_sampler), (5, self.phase5_main_path), (6, self.phase6_greedy_e2e),
-            (7, self.phase7_library), (8, self.phase8_engine),
+            (7, self.phase7_library), (8, self.phase8_engine), (9, self.phase9_server),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

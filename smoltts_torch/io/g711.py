@@ -55,3 +55,10 @@ def ulaw_encode(pcm: torch.Tensor) -> torch.Tensor:
     mant = torch.bitwise_right_shift(a, exp + 3) & 0x0F
     byte = (neg.to(torch.int32) << 7) | (exp << 4) | mant
     return (~byte & 0xFF).to(torch.uint8)
+
+
+def resample_to_8k(pcm: np.ndarray, rate: int) -> np.ndarray:
+    """Windowed-sinc resample to 8 kHz through the native audio helper."""
+    from smoltts_torch.native.audio_io import resample
+
+    return resample(pcm, rate, 8000)

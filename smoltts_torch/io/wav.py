@@ -8,9 +8,15 @@ import numpy as np
 
 
 def pcm_to_int16(pcm: np.ndarray) -> np.ndarray:
+    """float PCM -> int16 (clip, scale by 32767, truncate), through the native
+    converter when it builds; int16 (the engine's frames) passes through."""
+    from smoltts_torch.native.audio_io import f32_to_i16, native_audio_available
+
     pcm = np.asarray(pcm)
     if pcm.dtype == np.int16:
         return pcm
+    if native_audio_available():
+        return f32_to_i16(pcm).reshape(pcm.shape)
     x = np.clip(pcm.astype(np.float32), -1.0, 1.0)
     return (x * 32767.0).astype(np.int16)
 

@@ -63,17 +63,17 @@ class Record(NamedTuple):
 
     `urgent` marks admission records: they hold a just-admitted stream's
     FIRST frame, so `take_due` releases them at once instead of holding them
-    `inflight` dispatches behind. Fetching one ahead of older records is
-    safe: it is the first record that mentions its streams, and frames of
-    other streams keep their dispatch order within their own records."""
+    `inflight` dispatches behind. Accounting one ahead of older records is
+    safe: it is the first record that mentions its streams. A later record
+    must not overtake it, or a stream's second frame would be taken for its
+    first (`EngineLoop._account_in_order`)."""
 
     payload: tuple  # host snapshots: (codes, is_audio, finished, slow, pcm or None)
     rows: list  # [(row index in payload, stream id)]
     n_frames: int  # 1 or chunk K (payload frame-major [K, B, ...])
     urgent: bool = False
-    # Dispatch order of NON-urgent records (None for urgent ones): parallel
-    # fetchers account them in this order.
-    seq: Optional[int] = None
+    # Dispatch ordinal of every record, urgent ones included.
+    seq: int = 0
     # fetch_start / fetch_end stamps written by fetch(), folded into the
     # engine's timings for admission records (see pop_timing).
     meta: dict = None
@@ -170,9 +170,11 @@ class DecodeEngine:
         # ends on <|im_end|> is released by `account`, on a fetch thread).
         self._to_mark: List[int] = []
         self._ids = itertools.count()
-        # Dispatch order of non-urgent records: a plain int, so an EngineLoop
-        # attached later resumes accounting from the engine's position.
+        # The next record's dispatch ordinal, and the ordinals dispatched but
+        # not yet accounted (an EngineLoop accounts a non-urgent record only
+        # once every record dispatched before it has been).
         self._seq = 0
+        self._unaccounted: set = set()
         self._free: List[int] = list(range(num_slots))
         self._streams: Dict[int, StreamHandle] = {}
         self._slot_to_stream: Dict[int, int] = {}
@@ -442,11 +444,15 @@ class DecodeEngine:
             for sid, _ in batch:
                 if sid in self.timings:
                     self.timings[sid]["admit"] = t_admit
-            self._queue.append(Record(
-                payload, [(i, sid) for i, (sid, _) in enumerate(batch)], 1,
-                urgent=True, meta={}, event=event,
-            ))
+            self._enqueue(Record(payload, [(i, sid) for i, (sid, _) in enumerate(batch)], 1,
+                                 urgent=True, meta={}, event=event))
             self.stats["admissions"] += 1
+
+    def _enqueue(self, rec: Record) -> None:
+        rec = rec._replace(seq=self._seq)
+        self._seq += 1
+        self._unaccounted.add(rec.seq)
+        self._queue.append(rec)
 
     def _bookkeep(self, sid: int, frame: dict) -> Optional[dict]:
         """Account one fetched frame; None = drop (the stream was already
@@ -510,6 +516,7 @@ class DecodeEngine:
             self.stats["records_fetched"] += len(records)
             self.stats["urgent_fetched"] += sum(r.urgent for r in records)
         for (codes, is_audio, fin, slow, pcm), rec in zip(fetched, records):
+            self._unaccounted.discard(rec.seq)
             rows, n_frames = rec.rows, rec.n_frames
             for k in range(n_frames):
                 ck, ak, fk, sk = ((codes, is_audio, fin, slow) if n_frames == 1
@@ -608,9 +615,7 @@ class DecodeEngine:
         for slot, _ in live_slots:
             self._slot_pos[slot] += K
         self._since_flush += K
-        self._queue.append(Record(payload, [(s, sid) for s, sid in live_slots], K,
-                                  seq=self._seq, event=event))
-        self._seq += 1
+        self._enqueue(Record(payload, [(s, sid) for s, sid in live_slots], K, event=event))
         self.stats["dispatches"] += 1
         self.stats["frames_dispatched"] += K * len(live_slots)
         self.stats["frame_steps"] += K
@@ -634,9 +639,11 @@ class EngineLoop:
 
     The DISPATCH thread admits prompts and dispatches steps (the only thread
     that launches device work); `fetchers` FETCH threads wait for records
-    outside the engine lock. Non-urgent records are ACCOUNTED in dispatch
-    order (`Record.seq`); urgent ones (first frames) the moment they land.
-    With two or more fetchers one is dedicated to urgent records.
+    outside the engine lock. Urgent records (first frames) are ACCOUNTED the
+    moment they land; every other record once all records dispatched before
+    it (`Record.seq`), urgent ones included, have been, so each stream's
+    frames reach its queue in dispatch order. With two or more fetchers one
+    is dedicated to urgent records.
 
     `max_ahead` bounds the un-fetched records dispatch may run ahead; it is
     also the first-audio latency knob (a new stream's prefill runs behind at
@@ -649,11 +656,7 @@ class EngineLoop:
         self._queues: Dict[int, "queue.Queue"] = {}
         self._lock = threading.Lock()
         self._stop = threading.Event()
-        # In-order accounting starts at the oldest record still queued when
-        # the loop attaches (or the engine's cursor).
         self._acct_cv = threading.Condition(self._lock)
-        self._next_acct = min((r.seq for r in engine._queue if r.seq is not None),
-                              default=engine._seq)
         self._max_ahead = (max_ahead if max_ahead is not None
                            else engine.inflight + max(2, engine.fetch_every))
         # The drain invariant: below inflight + fetch_every the dispatch gate
@@ -707,18 +710,18 @@ class EngineLoop:
                     self._queues.pop(sid, None)
 
     def _account_in_order(self, records, fetched) -> None:
-        """Urgent records at once; non-urgent strictly in `seq` order across
-        all fetcher threads."""
+        """Urgent records at once; any other record after every record
+        dispatched before it, across all fetcher threads. Its frames go on
+        their queues under the same lock (an unbounded put never blocks), so
+        two fetchers cannot interleave one stream's frames."""
+        pending = self.engine._unaccounted
         for rec, data in zip(records, fetched):
             with self._acct_cv:
-                if rec.seq is not None:
-                    while self._next_acct < rec.seq and not self._stop.is_set():
-                        self._acct_cv.wait(0.05)
-                frames = self.engine.account([rec], [data])
-                if rec.seq is not None:
-                    self._next_acct = max(self._next_acct, rec.seq + 1)
-                    self._acct_cv.notify_all()
-            self._emit(frames)
+                while (not rec.urgent and min(pending) < rec.seq
+                       and not self._stop.is_set()):
+                    self._acct_cv.wait(0.05)
+                self._emit(self.engine.account([rec], [data]))
+                self._acct_cv.notify_all()
 
     def _fetch_loop(self, kind: str = "all"):
         while not self._stop.is_set():
@@ -737,3 +740,8 @@ class EngineLoop:
         self._dispatcher.join(timeout=5)
         for t in self._fetchers:
             t.join(timeout=5)
+        # Streams still open end here, so a consumer blocked on q.get wakes.
+        with self._lock:
+            for q in self._queues.values():
+                q.put(None)
+            self._queues.clear()

@@ -9,6 +9,7 @@ loop stops in `finally`."""
 import os
 import queue
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -389,6 +390,43 @@ def test_engine_loop_under_thread_stress():
     finally:
         loop.stop()
         sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in [loop._dispatcher, *loop._fetchers])
+
+
+def test_engine_loop_keeps_frame_order_behind_a_late_urgent_fetch():
+    """The urgent fetcher lands every admission record 0.3 s late while the
+    bulk fetchers run on: each stream's frames still equal the single-
+    threaded run of the same schedule, in order (a later record never
+    overtakes the one that carries a stream's first frame)."""
+    cfg, tok, params = setup()
+    settings = GenerationSettings(**GREEDY, max_new_tokens=64)
+    prompts = [audio_prompt(cfg, tok, 4 + s % 3, s) for s in range(6)]
+    budgets = [4 + s % 3 for s in range(6)]
+    eng = engine(cfg, tok, params, settings, num_slots=4)
+    sids = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+    got = drain(eng, {})
+    ref = [[f["audio_codes"] for f in got[s]] for s in sids]
+    eng = engine(cfg, tok, params, settings, num_slots=4)
+    fetch = eng.fetch
+
+    def late_urgent_fetch(records):
+        if records and all(r.urgent for r in records):
+            time.sleep(0.3)
+        return fetch(records)
+
+    eng.fetch = late_urgent_fetch
+    loop = EngineLoop(eng, max_ahead=3, fetchers=3)
+    try:
+        qs = [loop.submit(p, b) for p, b in zip(prompts, budgets)]
+        for q, want in zip(qs, ref):
+            frames = []
+            while (f := q.get(timeout=TIMEOUT)) is not None:
+                frames.append(f["audio_codes"])
+            assert len(frames) == len(want)
+            for i, (a, b) in enumerate(zip(frames, want)):
+                np.testing.assert_array_equal(a, b, err_msg=f"stream {q.sid} frame {i}")
+    finally:
+        loop.stop()
     assert not any(t.is_alive() for t in [loop._dispatcher, *loop._fetchers])
 
 

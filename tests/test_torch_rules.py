@@ -85,9 +85,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     )
     from smoltts_torch.lm.samplers import GenerationSettings
     from smoltts_torch.models.dual_ar import init_params
+    from smoltts_torch.server.app import load_core
+    from smoltts_torch.server.settings import ServerSettings
     from smoltts_torch.tokenizer import TokenConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)  # never a download here
     cfg, mcfg = tiny_debug_config(), MimiConfig()
     tok, settings = TokenConfig.smoltts_v0(), GenerationSettings()
     calls = [
@@ -106,6 +109,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: SmolTTS(tmp_path / "missing"),
         lambda: load_params(tmp_path / "missing", cfg),
         lambda: load_mimi(tmp_path / "missing.safetensors"),
+        lambda: load_core(ServerSettings(checkpoint_dir=str(tmp_path / "missing"))),
+        # the device is checked before any download is tried
+        lambda: load_core(ServerSettings(model_id="jkeisling/smoltts_v0")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -140,3 +146,23 @@ def test_one_word_to_gumbel_mapping():
     u = ((words >> np.uint32(9)).astype(np.float32) + np.float32(0.5)) * np.float32(1.0 / 8388608.0)
     assert u.dtype == np.float32 and (u > 0).all() and (u < 1).all()
     assert np.isfinite(-np.log(-np.log(u))).all()
+
+
+def test_port_reads_its_own_data_files(monkeypatch):
+    """The MPEG encoder's prototype windows and the native audio source are
+    the port's own copies, read from smoltts_torch/, never from the JAX
+    package's directory."""
+    from smoltts_torch.io import mpeg
+    from smoltts_torch.native import audio_io
+
+    loaded = []
+    real_load = np.load
+    monkeypatch.setattr(np, "load", lambda path, *a, **k: loaded.append(Path(path)) or real_load(path, *a, **k))
+    window, _, _ = mpeg._prototype.__wrapped__()
+    assert window.shape == (512,)
+    assert loaded == [PKG / "io" / "pqmf_window_iso.npz"]
+    assert (PKG / "io" / "pqmf_window.npz").exists()
+    assert audio_io._SRC == PKG / "native" / "audio.c" and audio_io._SRC.exists()
+    for path in PKG.rglob("*.py"):
+        assert "smoltts_tpu" not in "".join(
+            line for line in path.read_text().splitlines() if "Path(" in line or "open(" in line), path
