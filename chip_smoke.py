@@ -61,6 +61,23 @@ Phases:
      (the card's idle share over a 2 s window) and with 4 blocking requests:
      audio-s/s at the socket, client first-chunk p50 / p95, /metrics, K1-K3
      launches per frame step, beside phase 8 (ii)'s rate
+  10 the quant gates (smoltts_torch.ops.quant_gate) on phase 5's trees,
+     gated in f32 math over the trees' values as bench.py runs the JAX
+     gates: int8 LM (CE delta, KL token and codebook, JS and flip mass of
+     the sampling distribution), int8 vocoder SNR on greedy codes (K3 at the
+     slow-token site), kv8 round-trip SNR and the kv8 read (K2 over an int8
+     history, 2 launches); each metric beside its bf16 value, bf16's own
+     rounding floor and the JAX value in QUANT_GATE_CACHE.json; a corrupted
+     int8 tree must raise QuantGateError
+  11 training: (i) tiny f32 forward_train, losses and gradients on the card
+     == the CPU; gradients with remat == without at dropout 0.1 (T=512);
+     fast_chunk_t losses == dense; (ii) bench_train.py's operating point
+     (150M, 16 x 768, bf16, remat and dropout 0.1 as released): 10 steps on
+     one batch (2 warm, 5 timed), step ms, tokens/s, MFU, peak memory, the
+     loss falls; one profiled step (busy share, top kernels); (iii)
+     train_loop with a CheckpointManager, resume from its newest step,
+     convert to the release layout, SmolTTS(dir, "int8+kv8") gives finite
+     PCM
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -95,6 +112,7 @@ K1_BF16_LEVEL0_GATE = 0.9  # see phase 3
 K3_NEAR_TIE = 1e-5  # kernel vs emulation: a differing id's noisy score, relative (phase 4)
 K3_MS_GATE = 0.005  # K3's own device ms per call at B=64, V=2368, bf16, sampled
 REPEATS = 3  # measured passes of the main path (phase 5)
+TRAIN_BATCH, TRAIN_SEQ = 16, 768  # bench_train.py's operating point (phase 11)
 # Phase 9 (i): a /stream body against the prompt's B=1 single stream. The
 # server's engine keeps its vocoder state, and so its PCM, in bf16 (8
 # significant bits, 48 dB for one rounding), and the card's kernels round it
@@ -193,15 +211,27 @@ def _profile(fn, iters, warmup):
     return prof
 
 
-def trace_kernels(prof):
-    """The window's device kernels as (name, start us, end us), by start."""
+def trace_events(prof) -> list:
+    """The window's events as its Chrome trace holds them."""
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "trace.json"
         prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
+        return json.loads(path.read_text())["traceEvents"]
+
+
+def trace_kernels(prof):
+    """The window's device kernels as (name, start us, end us), by start."""
     ks = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-          for e in events if e.get("cat") == "kernel"]
+          for e in trace_events(prof) if e.get("cat") == "kernel"]
     return sorted(ks, key=lambda k: k[1])
+
+
+def trace_categories(prof) -> dict:
+    """How many events of each category the window's trace holds."""
+    cats = {}
+    for e in trace_events(prof):
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    return cats
 
 
 def busy_us(kernels) -> float:
@@ -233,6 +263,34 @@ def _self_device_ms(event) -> float:
 
 def _on_device(event) -> bool:
     return getattr(event, "device_type", None) is not None and "CUDA" in str(event.device_type)
+
+
+def model_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (forward + 2x backward), each component
+    at the token count it processes: the fast trunk runs max_fast_seqlen
+    tokens per slow token, the depthwise head n [fast_dim, cb] products per
+    frame; causal attention halved; remat recompute excluded. A copy of
+    bench_train.py::model_flops_per_step (which imports JAX)."""
+
+    def trunk_params(n_layer, dim, q, kv, ffn):
+        return n_layer * (dim * (q + 2 * kv) + q * dim + 3 * dim * ffn)
+
+    n_slow = trunk_params(cfg.n_layer, cfg.dim, cfg.n_head * cfg.head_dim,
+                          cfg.n_local_heads * cfg.head_dim, cfg.intermediate_size)
+    n_fast = trunk_params(cfg.n_fast_layer, cfg.fast_dim, cfg.fast_n_head * cfg.fast_head_dim,
+                          cfg.fast_n_local_heads * cfg.fast_head_dim, cfg.fast_intermediate_size)
+    BT = batch * seq
+    n = cfg.max_fast_seqlen
+    fwd = 2.0 * n_slow * BT + 2.0 * n_fast * BT * n + 2.0 * cfg.dim * cfg.vocab_size * BT
+    if cfg.depthwise_output:
+        fwd += 2.0 * n * cfg.fast_dim * cfg.codebook_size * BT
+    else:
+        fwd += 2.0 * cfg.fast_dim * cfg.codebook_size * BT * n
+    if cfg.fast_dim != cfg.dim:
+        fwd += 2.0 * cfg.dim * cfg.fast_dim * BT
+    fwd += cfg.n_layer * 2.0 * batch * seq * seq * cfg.dim
+    fwd += cfg.n_fast_layer * 2.0 * BT * n * n * cfg.fast_dim
+    return 3.0 * fwd
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -2018,8 +2076,8 @@ class Smoke:
         """(ii) int8+kv8 sampled (0.7 / 0.7 / min-p 0.05, 96 frames), the
         server's engine at 64 slots: closed loops of 64 HTTP /stream clients,
         128 requests each, after a shakedown of 8 clients / 16 requests;
-        first alone (with a 2 s profiler window 10 s in: the card's idle
-        share), then with 4 blocking /v1/audio/speech requests starting one
+        first alone (with a 2 s profiler window from its 16th frame step:
+        the card's idle share), then with 4 blocking /v1/audio/speech requests starting one
         second in. Launches are read around each run: the blocking requests'
         own frames are what K1 counts beyond the engine's."""
         import http.client
@@ -2048,7 +2106,38 @@ class Smoke:
             vals = sorted(vals)
             return vals[min(len(vals) - 1, int(p * len(vals)))]
 
-        def closed(clients, total, blocking=0, profile_at=None):
+        def idle_window(at_step):
+            """The card's idle share over a 2 s profiler window opened once the
+            engine has made `at_step` frame steps: inside the first wave of
+            streams whatever the host's speed (a window opened at a fixed time
+            can fall between waves). A window that sees no kernel while the
+            engine made frame steps is logged with its trace's categories and
+            taken again, at most three times in all."""
+            deadline = time.perf_counter() + 120.0
+            while eng.stats["frame_steps"] < at_step:
+                check(time.perf_counter() < deadline,
+                      f"the served run made no {at_step}th frame step in 120 s")
+                time.sleep(0.02)
+            for attempt in range(3):
+                s0 = eng.stats["frame_steps"]
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    time.sleep(2.0)
+                    window = time.perf_counter() - t
+                steps = eng.stats["frame_steps"] - s0
+                kernels = trace_kernels(prof)
+                if kernels:
+                    break
+                log(f"[9 server] (ii) profiler window {attempt + 1} from frame step {s0} saw no "
+                    f"kernel while the engine made {steps} frame steps; trace categories "
+                    f"{trace_categories(prof)}")
+            check(kernels, "the profiler window over the served run saw no kernel in 3 windows")
+            idle = round(1.0 - busy_us(kernels) / (window * 1e6), 4)
+            log(f"[9 server] (ii) profiler window {attempt + 1} from frame step {s0}: {window:.3f} s, "
+                f"{steps} frame steps, {len(kernels)} kernels, device idle share {idle}")
+            return idle
+
+        def closed(clients, total, blocking=0, profile_after=None):
             lock = threading.Lock()
             issued, firsts, nbytes, failures, walls = [0], [], [0], [], []
 
@@ -2095,15 +2184,8 @@ class Smoke:
             for t in threads:
                 t.start()
             idle = "not measured"
-            if profile_at is not None:
-                time.sleep(profile_at)
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t = time.perf_counter()
-                    time.sleep(2.0)
-                    window = time.perf_counter() - t
-                kernels = trace_kernels(prof)
-                check(kernels, "the profiler window over the served run saw no kernel")
-                idle = round(1.0 - busy_us(kernels) / (window * 1e6), 4)
+            if profile_after is not None:
+                idle = idle_window(before["frame_steps"] + profile_after)
             for t in threads:
                 t.join(timeout=600)
             elapsed = time.perf_counter() - t_start
@@ -2136,7 +2218,7 @@ class Smoke:
 
         try:
             closed(8, 16)  # shakedown
-            closed(64, 128, profile_at=10.0)
+            closed(64, 128, profile_after=16)
             closed(64, 128, blocking=4)
             status, _, body = request(port, "GET", "/metrics")
             metrics = json.loads(body)
@@ -2148,6 +2230,322 @@ class Smoke:
             f"/metrics after both runs {json.dumps(metrics)}; phase 8 (ii) direct EngineLoop in "
             f"this call: {direct} audio-s/s")
         check(metrics["requests"] >= 16 + 2 * 128, f"/metrics requests {metrics['requests']}")
+
+    # ---- phase 10: the quant gates -----------------------------------------
+
+    def phase10_gates(self):
+        """The JAX package's int8 and kv8 quality gates on phase 5's trees on
+        the card, each metric beside the JAX value. Gated as bench.py gates
+        the JAX trees: f32 math over the trees' values (bf16 leaves cast,
+        int8 payloads as they are). Beside it, ungated: the metrics in bf16,
+        the serving dtype, and bf16's own rounding (dense bf16 against dense
+        f32, no int8)."""
+        from smoltts_torch import ops
+        from smoltts_torch.codec.mimi import init_mimi_params
+        from smoltts_torch.interop import tree_map
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.models.dual_ar import init_params
+        from smoltts_torch.ops import quant_gate as G
+        from smoltts_torch.ops.quant import (
+            QTensor, fuse_decode_params, fuse_mimi_decode_params, quantize_decode_params,
+            quantize_mimi_params,
+        )
+        from smoltts_torch.tokenizer import TokenConfig
+
+        torch, dev = self.torch, self.dev
+        t_phase = time.perf_counter()
+        smi = nvidia_smi()
+        cfg, params_q, mcfg, mimi_q = self.lm()
+        token_cfg = TokenConfig.smoltts_v0(cfg.codebook_size)
+        settings = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05)
+        dense = fuse_decode_params(init_params(cfg, torch.Generator().manual_seed(0),
+                                               dtype=torch.bfloat16, device=dev))
+        mimi = fuse_mimi_decode_params(init_mimi_params(mcfg, seed=0, dtype=torch.bfloat16,
+                                                        device=dev))
+        check(trees_equal(quantize_decode_params(dense), params_q)
+              and trees_equal(quantize_mimi_params(mimi), mimi_q),
+              "the gates' int8 trees differ from phase 5's")
+        jax_ref = json.loads((ROOT / "QUANT_GATE_CACHE.json").read_text())["metrics"]
+
+        def f32(tree):
+            return tree_map(lambda t: t.float() if t.dtype == torch.bfloat16 else t, tree)
+
+        trees32 = [f32(t) for t in (dense, params_q, mimi, mimi_q)]
+        metrics, counts = {}, {}
+        for mode, kw in (("int8", dict(int8=True, kv8=False)), ("kv8", dict(int8=False, kv8=True))):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.update(G.run_quant_gates(cfg, token_cfg, settings, mcfg, *trees32,
+                                             device=dev, **kw))
+            torch.cuda.synchronize()
+            counts[mode] = dict(ops.LAUNCHES)
+            log(f"[10 gates] {mode} gates passed (f32 math) in {time.perf_counter() - t0:.2f} s; "
+                f"launches {counts[mode]}")
+        check(set(metrics) == set(jax_ref), f"gate metrics {sorted(metrics)}")
+        check(counts["kv8"]["decode_attention"] == 2,
+              f"K2 launches in gate_kv8 {counts['kv8']['decode_attention']}, expected 2 "
+              "(bf16 and int8 history)")
+        check(counts["int8"]["sample_categorical"] >= 1, "K3 not launched in the vocoder gate")
+
+        served = G.int8_lm_metrics(cfg, token_cfg, dense, params_q)
+        served.update(G.int8_vocoder_metrics(cfg, token_cfg, settings, mcfg, dense, mimi, mimi_q))
+        served.update(G.kv8_metrics(cfg, token_cfg, dense))
+        floor = G.int8_lm_metrics(cfg, token_cfg, trees32[0], dense)
+        floor.update(G.int8_vocoder_metrics(cfg, token_cfg, settings, mcfg, trees32[0],
+                                            trees32[2], mimi))
+        for k, v in metrics.items():
+            limit, below = G.LIMITS[k]
+            log(f"[10 gates] {k}: card f32 math {v!r} | card bf16 {served[k]!r} | bf16 rounding "
+                f"alone {floor.get(k, 'n/a')!r} | JAX {jax_ref[k]!r} (QUANT_GATE_CACHE.json, "
+                f"f32) | limit {'<' if below else '>'} {limit}")
+        log(f"[10 gates] 150M on {smi}: f32 math passes every gate; bf16 outside the limits: "
+            f"{G.failing(served) or 'none'}; bf16 rounding alone outside: "
+            f"{G.failing(floor) or 'none'}")
+
+        bad = dict(trees32[1])
+        w = bad["fast_output"]
+        bad["fast_output"] = QTensor(q=w.q, scale=w.scale * 4.0)
+        try:
+            G.gate_int8_lm(cfg, token_cfg, trees32[0], bad)
+        except G.QuantGateError as e:
+            log(f"[10 gates] a corrupted int8 tree (fast head scales x4) raised QuantGateError: "
+                f"{str(e)[:300]}")
+        else:
+            raise RuntimeError("a corrupted int8 tree passed the int8 LM gate")
+        log(f"[10 gates] phase 10 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+    # ---- phase 11: training -------------------------------------------------
+
+    def phase11_training(self):
+        t_phase = time.perf_counter()
+        smi = nvidia_smi()
+        self._train_correctness(smi)
+        cfg, params = self._train_operating_point(smi)
+        self._train_to_serve(cfg, params, smi)
+        log(f"[11 train] phase 11 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+    def _train_correctness(self, smi):
+        """Tiny config in f32: the card's forward, losses and gradients
+        against the same port run on the CPU; remat on == off with dropout
+        0.1 (T=512, through sdpa_blockwise); the chunked loss == dense."""
+        from smoltts_torch.config import tiny_debug_config
+        from smoltts_torch.interop import tree_map
+        from smoltts_torch.models.dual_ar import forward_train, init_params
+        from smoltts_torch.tokenizer import TokenConfig
+        from smoltts_torch.train.data import collate, synthetic_dataset
+        from smoltts_torch.train.loss import compute_losses, forward_train_loss
+        from smoltts_torch.train.optim import tree_leaves
+
+        torch, dev = self.torch, self.dev
+        cfg = tiny_debug_config(codebook_size=64, vocab_size=256 + 64 + 64)
+        tok = TokenConfig.smoltts_v0(64)
+
+        def batch(B, T, seed):
+            rows = synthetic_dataset(B, cfg, tok, seq_len=T, seed=seed)
+            b = collate([r["ground_truth"] for r in rows], tok.pad_id, max_len=T)
+            return torch.from_numpy(b["tokens"]), torch.from_numpy(b["labels"])
+
+        def run(params, tokens, labels, c=cfg, **kw):
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            if kw:
+                losses = forward_train_loss(params, c, tokens, labels, **kw)
+                out = None
+            else:
+                out = forward_train(params, c, tokens)
+                losses = compute_losses(out.token_logits, out.codebook_logits, labels, True)
+            grads = torch.autograd.grad(losses.total, leaves)
+            for p in leaves:
+                p.requires_grad_(False)
+            return out, losses, grads
+
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        tokens, labels = batch(2, 16, 0)
+        o_c, l_c, g_c = run(cpu, tokens, labels)
+        o_d, l_d, g_d = run(card, tokens.to(dev), labels.to(dev))
+        worst = {}
+        for f in ("token_logits", "codebook_logits"):
+            a, b = getattr(o_d, f).detach().cpu(), getattr(o_c, f).detach()
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
+            worst[f] = float((a - b).abs().max())
+        for f in ("total", "base", "semantic", "per_codebook"):
+            torch.testing.assert_close(getattr(l_d, f).cpu(), getattr(l_c, f), rtol=1e-5, atol=1e-5)
+        for a, b in zip(g_d, g_c):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+        worst["grads"] = max(float((a.cpu() - b).abs().max()) for a, b in zip(g_d, g_c))
+        log(f"[11 train] tiny f32 forward_train, losses (incl. per codebook) and every gradient "
+            f"on the card == the CPU run (5e-4 / 1e-5 / 1e-5); max abs err {worst}")
+
+        tokens, labels = (t.to(dev) for t in batch(1, 512, 4))
+        kw = dict(dropout_seed=21, train=True)
+        off = cfg.replace(dropout=0.1, use_gradient_checkpointing=False)
+        on = cfg.replace(dropout=0.1, use_gradient_checkpointing=True)
+        _, l0, g0 = run(card, tokens, labels, off, **kw)
+        _, l1, g1 = run(card, tokens, labels, on, **kw)
+        _, l2, _ = run(card, tokens, labels, cfg, **kw)
+        torch.testing.assert_close(l1.total, l0.total, rtol=1e-6, atol=0)
+        for a, b in zip(g0, g1):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+        check(float(l2.total) != float(l0.total), "dropout 0.1 did not change the loss")
+        log(f"[11 train] dropout 0.1, T=512 (sdpa_blockwise): gradients with remat == without "
+            f"(max abs diff {max(float((a - b).abs().max()) for a, b in zip(g0, g1))}); loss "
+            f"{float(l1.total)} vs {float(l2.total)} without dropout")
+
+        tokens, labels = (t.to(dev) for t in batch(2, 16, 0))
+        dense = forward_train_loss(card, cfg, tokens, labels, per_codebook=True)
+        for ct in (4, 8):
+            ch = forward_train_loss(card, cfg, tokens, labels, chunk_t=ct, per_codebook=True)
+            torch.testing.assert_close(ch.total, dense.total, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(ch.per_codebook, dense.per_codebook, rtol=1e-5, atol=1e-6)
+        log(f"[11 train] fast_chunk_t 4 and 8 losses == the dense path's ({float(dense.total)})")
+
+    def _train_operating_point(self, smi):
+        """bench_train.py's operating point: 150M, batch 16 x seq 768, bf16
+        params, gradient checkpointing and dropout 0.1 as released, the
+        reference hyperparameters, one synthetic batch repeated."""
+        from smoltts_torch.config import TrainingConfig, smoltts_byte_150m
+        from smoltts_torch.models.dual_ar import init_params
+        from smoltts_torch.tokenizer import TokenConfig
+        from smoltts_torch.train.data import collate, synthetic_dataset
+        from smoltts_torch.train.trainer import batch_to, init_train_state, make_train_step
+
+        torch, dev = self.torch, self.dev
+        B, T = TRAIN_BATCH, TRAIN_SEQ
+        cfg = smoltts_byte_150m()
+        check(cfg.use_gradient_checkpointing and cfg.dropout == 0.1, "the released recipe")
+        tc = TrainingConfig(batch_size=B, learning_rate=5e-4, lr_start=1e-3,
+                            lr_warmup_steps=70_000, weight_decay=0.01, gradient_clip=1.0)
+        tok = TokenConfig.smoltts_v0()
+        params = init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                             device=dev)
+        rows = synthetic_dataset(B, cfg, tok, seq_len=T, seed=0)
+        batch = batch_to(collate([r["ground_truth"] for r in rows], tok.pad_id, max_len=T),
+                         dev)
+        state, tx = init_train_state(params, tc)
+        step = make_train_step(cfg, tc, tx)
+        gen = torch.Generator().manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, times = [], []
+        for _ in range(10):
+            seed = int(torch.randint(0, 2**62, (1,), generator=gen))
+            t0 = time.perf_counter()
+            state, m = step(state, batch, seed)
+            losses.append(float(m["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall over 10 steps: {losses}")
+        timed = [t * 1e3 for t in times[2:7]]
+        step_ms = float(np.median(timed))
+        flops = model_flops_per_step(cfg, B, T)
+        log(f"[11 train] 150M bf16, batch {B} x seq {T}, remat + dropout 0.1, on {smi}: step "
+            f"{step_ms} ms median of 5 after 2 warm ({timed}); {B * T / step_ms * 1e3} tokens/s; "
+            f"{flops / 1e12} TFLOP/step (bench_train.py's count), MFU "
+            f"{flops / (step_ms / 1e3) / BF16_FLOPS} of {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+            f"bound {flops / BF16_FLOPS * 1e3} ms; peak max_memory_allocated "
+            f"{peak / 2**30} GiB (params + optimizer {base / 2**30} GiB)")
+        log(f"[11 train] loss over 10 steps on one batch: {losses}")
+
+        def one():
+            nonlocal state
+            state, _ = step(state, batch, 7)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = _profile(one, 1, 0)
+        wall = (time.perf_counter() - t0) * 1e3
+        kernels = trace_kernels(prof)
+        rows = sorted((e for e in prof.key_averages() if _on_device(e)),
+                      key=_self_device_ms, reverse=True)
+        dev_ms = sum(_self_device_ms(e) for e in rows)
+        busy = busy_us(kernels) / 1e3
+        log(f"[11 train] one profiled step: {wall:.1f} ms wall, {busy:.1f} ms device busy "
+            f"(share {busy / wall:.4f}), {dev_ms:.1f} ms of kernels, {len(kernels)} kernels")
+        for e in rows[:12]:
+            log(f"[11 train]   {_self_device_ms(e):9.3f} ms x{e.count:5d}  {e.key[:110]}")
+
+        del state, tx, step
+        return cfg, params
+
+    def _train_to_serve(self, cfg, params, smi):
+        """train_loop with a CheckpointManager, a resume from its newest step,
+        convert to the release layout, and SmolTTS on the result."""
+        from smoltts_torch import SmolTTS
+        from smoltts_torch.codec.config import MimiConfig
+        from smoltts_torch.codec.mimi import init_mimi_params
+        from smoltts_torch.config import TrainingConfig
+        from smoltts_torch.io.convert import convert
+        from smoltts_torch.io.safetensors import save_file
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.tokenizer import TokenConfig, save_byte_level_tokenizer
+        from smoltts_torch.train.checkpoint import CheckpointManager
+        from smoltts_torch.train.data import batch_iterator, synthetic_dataset
+        from smoltts_torch.train.optim import tree_leaves
+        from smoltts_torch.train.trainer import TrainState, init_train_state, train_loop
+
+        torch, dev = self.torch, self.dev
+        tok = TokenConfig.smoltts_v0()
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            tc = TrainingConfig(batch_size=2, max_sequence_length=256, learning_rate=5e-4,
+                                lr_start=1e-3, lr_warmup_steps=70_000, weight_decay=0.01,
+                                save_every_n_steps=2, log_every_n_steps=1, keep_last_n_checkpoints=2,
+                                checkpoint_path=str(d / "ckpt"))
+            rows = synthetic_dataset(8, cfg, tok, seq_len=256, seed=1)
+            batches = list(batch_iterator(rows, batch_size=2, semantic_pad_id=tok.pad_id,
+                                          max_len=256, seed=2))
+            logs = []
+            mgr = CheckpointManager(tc.checkpoint_path, keep_last_n=2, config=tc)
+            t0 = time.perf_counter()
+            state, tx = init_train_state(params, tc)
+            state = train_loop(cfg, tc, state, tx, batches[:2], checkpoint_manager=mgr,
+                               log_fn=lambda s, m: logs.append((s, m["loss"])), device=dev)
+            latest = CheckpointManager.latest_checkpoint(tc.checkpoint_path)
+            check(latest is not None and latest.name == "step_000002", f"latest {latest}")
+            ckpt, n, reinit = CheckpointManager.load(str(latest), tc, map_location=dev)
+            check(n == 2 and not reinit, f"load -> step {n}, reinit {reinit}")
+            check(all(bool(torch.equal(a, b.detach())) for a, b in
+                      zip(tree_leaves(ckpt["params"]), tree_leaves(state.params))),
+                  "the checkpoint's params differ from the trained ones")
+            del state, tx
+            state, tx = init_train_state(ckpt["params"], tc)
+            tx.load_state_dict(ckpt["opt_state"])
+            state = train_loop(cfg, tc, TrainState(state.params, tx, n), tx, batches[2:4],
+                               checkpoint_manager=mgr,
+                               log_fn=lambda s, m: logs.append((s, m["loss"])), device=dev)
+            latest = CheckpointManager.latest_checkpoint(tc.checkpoint_path)
+            check(state.step == 4 and latest.name == "step_000004", f"resumed to {latest}")
+            check(all(math.isfinite(v) for _, v in logs), f"losses {logs}")
+            t_train = time.perf_counter() - t0
+            sizes = {p.name: p.stat().st_size for p in latest.iterdir()}
+            del state, tx, ckpt
+
+            cfg.save(d / "model_config.json")
+            rel = d / "release"
+            t0 = time.perf_counter()
+            n_params = convert(latest, d / "model_config.json", rel, device=dev)
+            save_byte_level_tokenizer(rel, cfg.codebook_size)
+            mcfg = MimiConfig()
+            save_file(mimi_hf_state(init_mimi_params(mcfg, seed=0, device="cpu"), mcfg),
+                      rel / "mimi.safetensors")
+            t_conv = time.perf_counter() - t0
+            sampled = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05,
+                                         max_new_tokens=16, audio_only_constraint=True)
+            tts = SmolTTS(rel, generation_settings=sampled, quantize="int8+kv8", seed=1,
+                          device=dev)
+            pcm = tts("Hello from a checkpoint trained on the card.")
+            hop = mcfg.samples_per_frame
+            check(pcm.ndim == 1 and pcm.size > 0 and pcm.size % hop == 0, f"PCM {pcm.shape}")
+            check(bool(np.isfinite(pcm).all()), "PCM not finite")
+        log(f"[11 train] train_loop 2 steps + checkpoint, resume from step 2, 2 more steps + "
+            f"checkpoint (batch 2 x 256) in {t_train:.1f} s, losses {logs}; step dir {sizes}; "
+            f"convert ({n_params} params) + tokenizer + Mimi in {t_conv:.1f} s; SmolTTS(release, "
+            f"'int8+kv8') __call__ -> {pcm.size // hop} frames of finite PCM on {smi}")
 
     def _f32_trees(self):
         """Phase 6's trees: 150M f32 int8 LM and the Mimi f32 int8 tree."""
@@ -2171,6 +2569,7 @@ class Smoke:
             (1, self.phase1_build), (2, self.phase2_attention), (3, self.phase3_fast_loop),
             (4, self.phase4_sampler), (5, self.phase5_main_path), (6, self.phase6_greedy_e2e),
             (7, self.phase7_library), (8, self.phase8_engine), (9, self.phase9_server),
+            (10, self.phase10_gates), (11, self.phase11_training),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

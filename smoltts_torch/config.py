@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass
@@ -193,3 +193,76 @@ def tiny_debug_config(**overrides) -> DualARConfig:
     )
     base.update(overrides)
     return DualARConfig(**base)
+
+
+@dataclasses.dataclass
+class TrainingConfig:
+    """Training-run config: the reference's keys plus the JAX package's extras,
+    with its defaults. Unknown keys are ignored (`from_dict`), so every JSON
+    under `config/` loads. On one device, `mesh_data_axis` -1 or 1 and
+    `mesh_model_axis` 1 are the only layouts (ROADMAP A7)."""
+
+    # Core paths and identifiers
+    project_name: str = "smoltts_train"
+    checkpoint_path: str = "checkpoints"
+    model_path: str = "pretrained_model"
+    dataset_path: str = ""
+    init_folder: str = ""
+
+    # Training params
+    batch_size: int = 8
+    max_epochs: int = 10
+    num_workers: int = 4
+    gradient_clip: float = 1.0
+    accumulate_steps: int = 1
+
+    # Optimizer
+    learning_rate: float = 1e-4
+    lr_start: float = 1e-3
+    lr_warmup_steps: int = 3000
+    weight_decay: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-5
+
+    # Validation & checkpointing
+    val_every_n_steps: int = 100
+    save_every_n_steps: int = 500
+    keep_last_n_checkpoints: int = 5
+
+    # Model/data params
+    max_sequence_length: int = 896
+    use_bf16: bool = True
+    use_wandb: bool = False
+    use_pretrained: bool = True
+
+    # Extras of the JAX package
+    mesh_data_axis: int = -1
+    mesh_model_axis: int = 1
+    sequence_parallel: bool = False
+    auto_resume: bool = False  # resume from the newest checkpoint under checkpoint_path
+    seed: int = 0
+    log_every_n_steps: int = 10
+    remat_policy: str = "none"  # "none" | "dots" (models/dual_ar.py::run_trunk)
+    # >0: the fast trunk and codebook CE fused and chunked over time
+    # (train/loss.py::forward_train_loss); must divide the sequence length.
+    fast_chunk_t: int = 0
+    # >0: a torch.profiler trace over steps [2, 2 + profile_steps)
+    profile_steps: int = 0
+    profile_dir: str = "smoltts_trace"
+
+    def __post_init__(self):
+        # JSON has no tuples: a loaded config must compare equal to a built one
+        self.betas = tuple(float(b) for b in self.betas)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainingConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def load_training_config(path: Union[str, Path]) -> TrainingConfig:
+    with open(path, "r", encoding="utf-8") as f:
+        return TrainingConfig.from_dict(json.load(f))

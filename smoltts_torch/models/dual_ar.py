@@ -1,5 +1,7 @@
-"""DualAR / RQ-Transformer, decode side: dimensions, random init, the
-embedding merge, the tied token head and the fast input projection.
+"""DualAR / RQ-Transformer: dimensions, random init, the embedding merge,
+the tied token head, the fast input projection, and the teacher-forced
+training forward (`forward_train`: slow trunk, then the fast trunk dense over
+every frame, frame-folded as the JAX package folds it).
 
 Parameters are a nested dict with the JAX package's key names; per-trunk
 layer weights are stacked along a leading layer axis. `DualARDecoder` holds
@@ -8,17 +10,32 @@ such a tree as registered buffers.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from smoltts_torch import resolve_device
 from smoltts_torch.config import DualARConfig
 from smoltts_torch.interop import TensorTree, tree_map
-from smoltts_torch.models.layers import AttnDims, rms_norm
-from smoltts_torch.ops.quant import mm
+from smoltts_torch.models.layers import (
+    AttnDims,
+    fold_in,
+    remat_call,
+    rms_norm,
+    rope_cos_sin,
+    split_seed,
+    transformer_block,
+)
+from smoltts_torch.ops.quant import QTensor, mm, qindex
 
 DualARParams = Dict[str, Any]
+
+
+class TrainForwardResult(NamedTuple):
+    token_logits: torch.Tensor  # [B, T, vocab]
+    codebook_logits: torch.Tensor  # [B, T, max_fast_seqlen, codebook_size]
+    hidden_states: torch.Tensor  # [B, T, dim] pre-norm slow output
 
 
 def slow_dims(cfg: DualARConfig) -> AttnDims:
@@ -32,6 +49,15 @@ def fast_dims(cfg: DualARConfig) -> AttnDims:
 def semantic_offsets(cfg: DualARConfig, device=None) -> torch.Tensor:
     """Per-level offsets into the shared codebook embedding table [num_rows-1]."""
     offs = torch.arange(cfg.num_codebooks, dtype=torch.int64, device=device) * cfg.codebook_size
+    return offs if cfg.duplicate_code_0 else offs[1:]
+
+
+def fast_codebook_offsets(cfg: DualARConfig, device=None) -> torch.Tensor:
+    """Offsets into the fast input embedding table for the teacher-forced
+    codes c_1..c_{n-1} [max_fast_seqlen - 1] (zeros unless depthwise_wte)."""
+    if not cfg.depthwise_wte:
+        return torch.zeros((cfg.max_fast_seqlen - 1,), dtype=torch.int64, device=device)
+    offs = torch.arange(cfg.num_codebooks - 1, dtype=torch.int64, device=device) * cfg.codebook_size
     return offs if cfg.duplicate_code_0 else offs[1:]
 
 
@@ -146,3 +172,150 @@ def project_fast_in(params: DualARParams, cfg: DualARConfig, x: torch.Tensor) ->
         p = params["fast_project_in"]
         return mm(x, p["kernel"]) + p["bias"]
     return x
+
+
+# ---- training forward -----------------------------------------------------
+
+def run_trunk(layer_params: dict, x: torch.Tensor, dims: AttnDims, cos, sin, *, mask=None,
+              is_causal: bool = True, dropout_rate: float = 0.0,
+              dropout_seed: Optional[int] = None, dropout_cols: Optional[int] = None,
+              norm_eps: float = 1e-5, remat: bool = False,
+              remat_policy: str = "none") -> torch.Tensor:
+    """The stacked layers in order (JAX's lax.scan over the layer axis);
+    layer i draws dropout from fold_in(seed, i). `remat` checkpoints each
+    layer (torch.utils.checkpoint, use_reentrant=False)."""
+    use_dropout = dropout_rate > 0.0 and dropout_seed is not None
+    n_layer = layer_params["attention_norm"].shape[0]
+    for i in range(n_layer):
+        lp = {name: qindex(w, i) for name, w in layer_params.items()}
+        seed = fold_in(dropout_seed, i) if use_dropout else None
+
+        def block(x, lp, seed=seed):
+            return transformer_block(x, lp, dims, cos, sin, mask=mask, is_causal=is_causal,
+                                     dropout_rate=dropout_rate if use_dropout else 0.0,
+                                     dropout_seed=seed, dropout_cols=dropout_cols,
+                                     norm_eps=norm_eps)
+
+        x = remat_call(block, x, lp, remat_policy=remat_policy) if remat else block(x, lp)
+    return x
+
+
+def fast_fold(N: int, n: int) -> int:
+    """Frames folded into one fast sequence: the largest F of {16, 8, 4, 2}
+    (at most SMOLTTS_FAST_FOLD, default 16) dividing N with F * n a multiple
+    of 128; 1 when none does (SMOLTTS_FAST_FOLD=1 disables folding)."""
+    fold_max = int(os.environ.get("SMOLTTS_FAST_FOLD", "16"))
+    for cand in (16, 8, 4, 2):
+        if cand <= fold_max and N % cand == 0 and (cand * n) % 128 == 0:
+            return cand
+    return 1
+
+
+def run_fast_trunk(params: DualARParams, cfg: DualARConfig, fast_seq: torch.Tensor, *,
+                   dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+                   remat: bool = False, remat_policy: str = "none") -> torch.Tensor:
+    """Fast trunk over per-frame sequences [N, n, fast_dim], F frames folded
+    into one (F * n)-token sequence under a block-diagonal causal mask: each
+    token still attends only within its frame, so the result equals the
+    unfolded form; dropout draws one bit per (row, column class mod n)."""
+    N, n, fd = fast_seq.shape
+    F = fast_fold(N, n)
+    fdims = fast_dims(cfg)
+    fcos, fsin = rope_cos_sin(torch.arange(n, device=fast_seq.device), cfg.fast_head_dim,
+                              cfg.rope_base)
+    common = dict(dropout_rate=dropout_rate, dropout_seed=dropout_seed, norm_eps=cfg.norm_eps,
+                  remat=remat, remat_policy=remat_policy)
+    if F == 1:
+        return run_trunk(params["fast_layers"], fast_seq, fdims, fcos, fsin, is_causal=True,
+                         **common)
+    folded = fast_seq.reshape(N // F, F * n, fd)
+    idx = torch.arange(F * n, device=fast_seq.device)
+    blk = idx // n
+    fmask = (blk[:, None] == blk[None, :]) & (idx[:, None] >= idx[None, :])
+    fast_x = run_trunk(params["fast_layers"], folded, fdims, fcos.repeat(F, 1),
+                       fsin.repeat(F, 1), mask=fmask, is_causal=False, dropout_cols=n, **common)
+    return fast_x.reshape(N, n, -1)
+
+
+def fast_output_logits(params: DualARParams, cfg: DualARConfig,
+                       fast_out: torch.Tensor) -> torch.Tensor:
+    """[N, max_fast_seqlen, fast_dim] -> [N, max_fast_seqlen, codebook_size];
+    the depthwise head is one [fast_dim, cb] projection per position, summed
+    in f32 and rounded once (an int8 head is scaled before the rounding, as
+    JAX does)."""
+    w = params["fast_output"]
+    if not cfg.depthwise_output:
+        return mm(fast_out, w)
+    if isinstance(w, QTensor):
+        y = torch.einsum("ijm,jmk->ijk", fast_out.float(), w.q.float())
+        return (y * w.scale.transpose(0, 1)).to(fast_out.dtype)  # scale [n, 1, cb]
+    return torch.einsum("ijm,jmk->ijk", fast_out, w)
+
+
+def _slow_forward(params: DualARParams, cfg: DualARConfig, tokens: torch.Tensor, *,
+                  dropout: float, dropout_seed: Optional[int], embed_mask_mode: str,
+                  semantic_start_id: int, semantic_end_id: int, activation_sharding,
+                  remat_policy: str, remat: bool) -> torch.Tensor:
+    """Embed-merge + slow trunk -> pre-norm hidden states [B, T, dim]."""
+    if activation_sharding is not None:
+        raise NotImplementedError("activation_sharding (sequence parallelism) waits for the "
+                                  "port's parallel layer (ROADMAP A7); pass None")
+    x = embed_merge(params, cfg, tokens, embed_mask_mode=embed_mask_mode,
+                    semantic_start_id=semantic_start_id, semantic_end_id=semantic_end_id)
+    T = tokens.shape[-1]
+    cos, sin = rope_cos_sin(torch.arange(T, device=tokens.device), cfg.head_dim, cfg.rope_base)
+    return run_trunk(params["layers"], x, slow_dims(cfg), cos, sin, is_causal=True,
+                     dropout_rate=dropout, dropout_seed=dropout_seed, norm_eps=cfg.norm_eps,
+                     remat=remat, remat_policy=remat_policy)
+
+
+def remat_scopes(cfg: DualARConfig, train: bool):
+    """(slow, fast): whether layer remat applies to each trunk. Remat is on
+    when the config asks for gradient checkpointing and `train`;
+    SMOLTTS_REMAT_SCOPE (both | slow | fast, default both) picks the trunks."""
+    scope = os.environ.get("SMOLTTS_REMAT_SCOPE", "both")
+    on = cfg.use_gradient_checkpointing and train
+    return on and scope in ("both", "slow"), on and scope in ("both", "fast")
+
+
+def teacher_forced_codes(cfg: DualARConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-frame codebook rows 1..R-2, shifted left in time, zero-padded at
+    the end, with the fast table's offsets: [B, T, R-2] int64 (time-major)."""
+    cb = torch.nn.functional.pad(tokens[:, 1:-1, 1:].long(), (0, 1))
+    cb = cb + fast_codebook_offsets(cfg, tokens.device)[None, :, None]
+    return cb.transpose(1, 2)
+
+
+def forward_train(params: DualARParams, cfg: DualARConfig, tokens: torch.Tensor, *,
+                  dropout_seed: Optional[int] = None, train: bool = False,
+                  embed_mask_mode: str = "row1_zero", semantic_start_id: int = 0,
+                  semantic_end_id: int = 0, activation_sharding=None,
+                  remat_policy: str = "none") -> TrainForwardResult:
+    """Training forward: slow trunk, token head, then the fast trunk dense
+    over every frame on teacher-forced codes. tokens int [B, num_rows, T],
+    already shifted (input side). Dropout applies when `train` and a seed is
+    given."""
+    B, R, T = tokens.shape
+    if R != cfg.num_rows:
+        raise ValueError(f"expected {cfg.num_rows} rows, got {R}")
+    dropout = cfg.dropout if train else 0.0
+    seeds = split_seed(dropout_seed) if (dropout > 0.0 and dropout_seed is not None) else (None, None)
+    remat_slow, remat_fast = remat_scopes(cfg, train)
+
+    x = _slow_forward(params, cfg, tokens, dropout=dropout, dropout_seed=seeds[0],
+                      embed_mask_mode=embed_mask_mode, semantic_start_id=semantic_start_id,
+                      semantic_end_id=semantic_end_id, activation_sharding=activation_sharding,
+                      remat_policy=remat_policy, remat=remat_slow)
+    token_logits = token_head(params, cfg, x)
+
+    h = project_fast_in(params, cfg, x)  # [B, T, fast_dim]
+    cb_embeds = params["fast_embeddings"][teacher_forced_codes(cfg, tokens)]  # [B, T, R-2, fd]
+    fast_seq = torch.cat([h[:, :, None], cb_embeds], dim=2)  # [B, T, n, fd]
+    n = cfg.max_fast_seqlen
+    fast_x = run_fast_trunk(params, cfg, fast_seq.reshape(B * T, n, cfg.fast_dim),
+                            dropout_rate=dropout, dropout_seed=seeds[1], remat=remat_fast,
+                            remat_policy=remat_policy)
+    fast_out = rms_norm(fast_x, params["fast_norm"], cfg.norm_eps)
+    codebook_logits = fast_output_logits(params, cfg, fast_out).reshape(B, T, n, cfg.codebook_size)
+    return TrainForwardResult(token_logits=token_logits, codebook_logits=codebook_logits,
+                              hidden_states=x)

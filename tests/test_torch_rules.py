@@ -75,7 +75,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from smoltts_torch import SmolTTS
     from smoltts_torch.codec.config import MimiConfig
     from smoltts_torch.codec.mimi import decode_stream_init, init_mimi_params, load_mimi
-    from smoltts_torch.config import tiny_debug_config
+    from smoltts_torch.config import TrainingConfig, tiny_debug_config
+    from smoltts_torch.io.convert import convert
     from smoltts_torch.io.checkpoint import load_params
     from smoltts_torch.lm.decode import init_decode_state
     from smoltts_torch.lm.engine import DecodeEngine
@@ -85,9 +86,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     )
     from smoltts_torch.lm.samplers import GenerationSettings
     from smoltts_torch.models.dual_ar import init_params
+    from smoltts_torch.ops.quant_gate import run_quant_gates, run_quant_gates_cached
     from smoltts_torch.server.app import load_core
     from smoltts_torch.server.settings import ServerSettings
     from smoltts_torch.tokenizer import TokenConfig
+    from smoltts_torch.train.main import main as train_main
+    from smoltts_torch.train.trainer import train_loop
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setitem(sys.modules, "huggingface_hub", None)  # never a download here
@@ -112,10 +116,18 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: load_core(ServerSettings(checkpoint_dir=str(tmp_path / "missing"))),
         # the device is checked before any download is tried
         lambda: load_core(ServerSettings(model_id="jkeisling/smoltts_v0")),
+        # training, the quant gates and conversion
+        lambda: train_main(["--config", str(tmp_path / "missing.json")]),
+        lambda: train_loop(cfg, TrainingConfig(), None, None, []),
+        lambda: run_quant_gates(cfg, tok, settings, mcfg, {}, {}, {}, {}, int8=True, kv8=True),
+        lambda: run_quant_gates_cached(cfg, tok, settings, mcfg, {}, {}, {}, {}, int8=True,
+                                       kv8=True, cache_path=str(tmp_path / "gates.json")),
+        lambda: convert(tmp_path / "missing", tmp_path / "missing.json", tmp_path / "out"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert not (tmp_path / "gates.json").exists() and not (tmp_path / "out").exists()
     # an explicit CPU device is honoured
     assert init_decode_state(cfg, 1, 16, device="cpu").k.device.type == "cpu"
 
