@@ -78,6 +78,18 @@ Phases:
      train_loop with a CheckpointManager, resume from its newest step,
      convert to the release layout, SmolTTS(dir, "int8+kv8") gives finite
      PCM
+  12 the data pipeline (smoltts_torch.data_pipeline) at full width: (i)
+     MimiCodec.encode_batch on the card == the CPU for 6 ragged utterances
+     (f32, TF32 off; a differing code must be a near tie); (ii) 192
+     synthetic utterances of 2-17 s through encode_dataset_rows at batch
+     24: audio-s/s, the busy share and top kernels of one batch from
+     utils.profiling (trace, device_op_summary, held against the profiler's
+     own rows); (iii) filter, tokenize and pack with
+     config/pipeline/project_gutenberg_v2.json, create_bytelevel_init at
+     150M, 3 train steps at 16 x 768 on the packed rows, SmolTTS on the init
+     dir; (iv) convert_lm_init at SmolLM2-135M's widths loads bit for bit, a
+     finite forward_train; (v) the BPE fixture's HF ids without
+     `tokenizers`; (vi) serve_preview's /random WAV
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -86,6 +98,7 @@ phase exits non-zero without that last line. No JAX is imported.
 
 from __future__ import annotations
 
+import importlib.util
 import itertools
 import json
 import math
@@ -113,6 +126,14 @@ K3_NEAR_TIE = 1e-5  # kernel vs emulation: a differing id's noisy score, relativ
 K3_MS_GATE = 0.005  # K3's own device ms per call at B=64, V=2368, bf16, sampled
 REPEATS = 3  # measured passes of the main path (phase 5)
 TRAIN_BATCH, TRAIN_SEQ = 16, 768  # bench_train.py's operating point (phase 11)
+PIPE_UTTS, PIPE_BATCH = 192, 24  # phase 12: utterances, encode_audio's CLI batch size
+# Phase 12 (i): a code that differs card vs CPU, scored on the CPU's residual,
+# within this fraction of the codebook's score range below the CPU's code.
+RVQ_NEAR_TIE = 1e-3
+# SmolLM2-135M's published widths (its HF config.json), phase 12 (iv)
+SMOLLM2_135M = dict(hidden_size=576, num_hidden_layers=30, num_attention_heads=9,
+                    num_key_value_heads=3, intermediate_size=1536, vocab_size=49152,
+                    tie_word_embeddings=True)
 # Phase 9 (i): a /stream body against the prompt's B=1 single stream. The
 # server's engine keeps its vocoder state, and so its PCM, in bf16 (8
 # significant bits, 48 dB for one rounding), and the card's kernels round it
@@ -221,8 +242,14 @@ def trace_events(prof) -> list:
 
 def trace_kernels(prof):
     """The window's device kernels as (name, start us, end us), by start."""
+    return kernel_intervals(trace_events(prof))
+
+
+def kernel_intervals(events) -> list:
+    """The device kernels of Chrome-trace events as (name, start us, end us),
+    by start."""
     ks = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-          for e in trace_events(prof) if e.get("cat") == "kernel"]
+          for e in events if e.get("cat") == "kernel"]
     return sorted(ks, key=lambda k: k[1])
 
 
@@ -521,6 +548,110 @@ def tap_loop(loop):
 
     loop.submit, loop._emit, eng._flush = tapped_submit, tapped_emit, tapped_flush
     return rec
+
+
+# ---- the data pipeline (phase 12) -------------------------------------------
+
+
+def pipe_mimi_config():
+    """Phase 12's Mimi: the full-size release config."""
+    from smoltts_torch.codec.config import MimiConfig
+
+    return MimiConfig()
+
+
+def pipe_lm_config():
+    """Phase 12's model: the released 150M byte preset as create_init makes it."""
+    from smoltts_torch.config import smoltts_byte_150m
+
+    return smoltts_byte_150m()
+
+
+def warm_start_config():
+    """(DualAR config, HF widths) of the SmolLM2-135M warm start: the 70M
+    preset's widths are SmolLM2-135M's; 30 layers, and the LM's 49152 ids
+    followed by the 64 control and speaker ids and the 2048 semantic ids."""
+    from smoltts_torch.config import smoltts_byte_70m
+
+    hf = SMOLLM2_135M
+    cfg = smoltts_byte_70m().replace(n_layer=hf["num_hidden_layers"],
+                                     vocab_size=hf["vocab_size"] + 64 + 2048, dropout=0.0)
+    check((cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.intermediate_size, cfg.tie_word_embeddings)
+          == (hf["hidden_size"], hf["num_attention_heads"], hf["num_key_value_heads"],
+              hf["intermediate_size"], hf["tie_word_embeddings"]), "SmolLM2-135M widths")
+    return cfg, hf
+
+
+def mimi_encoder_flops(cfg, num_quantizers: int = 8) -> float:
+    """FLOPs of the Mimi encoder per audio-second (2 per multiply-add): the
+    SEANet convs and residual blocks at their sample rates, the transformer's
+    products and windowed attention at its frame rate, the downsample conv,
+    and the RVQ's input projections and distances."""
+    from smoltts_torch.codec.seanet import build_encoder_plan
+
+    rate, macs = float(cfg.sampling_rate), 0.0
+    for s in build_encoder_plan(cfg):
+        if s.kind == "conv":
+            rate /= s.stride
+            macs += rate * s.in_ch * s.out_ch * s.kernel
+        elif s.kind == "resnet":
+            macs += rate * (s.in_ch * s.res_hidden * s.res_kernel + s.res_hidden * s.out_ch)
+    d, L = cfg.hidden_size, cfg.num_hidden_layers
+    macs += rate * L * (4 * d * d + 2 * d * cfg.intermediate_size + 2 * d * cfg.sliding_window)
+    frames = cfg.frame_rate
+    macs += frames * d * d * cfg.downsample_kernel
+    macs += frames * (2 * d * cfg.codebook_dim + num_quantizers * cfg.codebook_size * cfg.codebook_dim)
+    return 2.0 * macs
+
+
+def smollm_state(hf: dict, seed: int) -> dict:
+    """A seeded Llama-style HF state dict (numpy f32) at the widths of `hf`,
+    tied embeddings (no lm_head)."""
+    rng = np.random.default_rng(seed)
+    D, F = hf["hidden_size"], hf["intermediate_size"]
+    kv = hf["num_key_value_heads"] * (D // hf["num_attention_heads"])
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    st = {"model.embed_tokens.weight": w(hf["vocab_size"], D),
+          "model.norm.weight": np.ones(D, np.float32)}
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        st.update({p + "self_attn.q_proj.weight": w(D, D), p + "self_attn.k_proj.weight": w(kv, D),
+                   p + "self_attn.v_proj.weight": w(kv, D), p + "self_attn.o_proj.weight": w(D, D),
+                   p + "mlp.gate_proj.weight": w(F, D), p + "mlp.up_proj.weight": w(F, D),
+                   p + "mlp.down_proj.weight": w(D, F),
+                   p + "input_layernorm.weight": np.ones(D, np.float32),
+                   p + "post_attention_layernorm.weight": np.ones(D, np.float32)})
+    return st
+
+
+def synth_audio(rng, n: int, sr: int) -> np.ndarray:
+    """n samples of seeded speech-band audio: three sines under a slow
+    envelope, plus noise."""
+    t = np.arange(n, dtype=np.float32) / np.float32(sr)
+    f, ph = rng.uniform(90, 400, 3), rng.uniform(0, 2 * np.pi, 3)
+    x = sum(np.sin(np.float32(2 * np.pi * fi) * t + np.float32(p)) for fi, p in zip(f, ph)) / 3
+    env = 0.5 + 0.5 * np.sin(np.float32(2 * np.pi * rng.uniform(0.5, 3.0)) * t)
+    return (0.3 * env * x + 0.02 * rng.standard_normal(n, dtype=np.float32)).astype(np.float32)
+
+
+def pipeline_utterances(n: int, sr: int, speakers, seed: int) -> list:
+    """n rows as an audio dataset holds them: durations uniform in 2-17 s,
+    synthetic audio, seeded words at about 15 characters per audio second,
+    a speaker from `speakers`."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for dur in rng.uniform(2.0, 17.0, n):
+        words, chars = [], 0
+        while chars < 15 * dur:
+            words.append("".join(chr(c) for c in rng.integers(97, 123, int(rng.integers(2, 9)))))
+            chars += len(words[-1]) + 1
+        rows.append({"audio": {"array": synth_audio(rng, int(dur * sr), sr), "sampling_rate": sr},
+                     "text_normalized": " ".join(words).capitalize() + ".",
+                     "speaker_id": speakers[int(rng.integers(0, len(speakers)))]})
+    return rows
 
 
 SERVER_TEXTS = [
@@ -2547,6 +2678,350 @@ class Smoke:
             f"convert ({n_params} params) + tokenizer + Mimi in {t_conv:.1f} s; SmolTTS(release, "
             f"'int8+kv8') __call__ -> {pcm.size // hop} frames of finite PCM on {smi}")
 
+    # ---- phase 12: the data pipeline ----------------------------------------
+
+    def phase12_data_pipeline(self):
+        """Audio -> Mimi codes -> packed ChatML rows -> 150M train steps, at
+        full width on the card, through the pipeline's library functions."""
+        from smoltts_torch.codec.mimi import init_mimi_params
+        from smoltts_torch.data_pipeline.encode_audio import MimiCodec
+        from smoltts_torch.data_pipeline.tokenize_dataset import PipelineConfig
+
+        t_phase = time.perf_counter()
+        smi = nvidia_smi()
+        mcfg = pipe_mimi_config()
+        mimi = init_mimi_params(mcfg, seed=0, device="cpu")  # f32
+        codec = MimiCodec(mimi, mcfg, device=self.dev)
+        self._pipe_encoder_parity(codec, mimi, mcfg)
+        cfg = PipelineConfig.from_json(ROOT / "config" / "pipeline" / "project_gutenberg_v2.json")
+        rows = pipeline_utterances(PIPE_UTTS, mcfg.sampling_rate, cfg.speaker.speaker_names,
+                                   seed=12)
+        encoded = self._pipe_encode(codec, rows, smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            self._pipe_tokenize_and_train(encoded, cfg, mimi, mcfg, d / "init", smi)
+            self._pipe_warm_start(d / "warm", smi)
+            self._pipe_bpe(d / "bpe", smi)
+        self._pipe_preview(encoded, codec, mcfg)
+        log(f"[12 data] phase 12 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+    def _pipe_encoder_parity(self, codec, mimi, mcfg):
+        """(i) encode_batch on the card == on the CPU for 6 ragged
+        utterances (f32, TF32 off); a differing code must be a near tie: at
+        the first level of its side where the two differ, the CPU's residual
+        scores the card's code within RVQ_NEAR_TIE of the score range below
+        the CPU's (later levels of that side follow from the first)."""
+        from smoltts_torch.codec.conv import causal_conv1d
+        from smoltts_torch.codec.seanet import build_encoder_plan, seanet_apply
+        from smoltts_torch.codec.transformer import transformer_forward
+        from smoltts_torch.data_pipeline.encode_audio import MimiCodec
+
+        torch = self.torch
+        hop = mcfg.samples_per_frame
+        rng = np.random.default_rng(5)
+        lens = [int(s * mcfg.sampling_rate) + int(rng.integers(0, hop))
+                for s in (1.3, 2.0, 0.5, 3.7, 2.9, 1.1)]
+        audios = [synth_audio(rng, n, mcfg.sampling_rate) for n in lens]
+        card = codec.encode_batch(audios)
+        cpu = MimiCodec(mimi, mcfg, device="cpu").encode_batch(audios)
+        batch = np.zeros((len(audios), max(card[i].shape[-1] for i in range(6)) * hop), np.float32)
+        for i, a in enumerate(audios):
+            batch[i, : a.size] = a
+
+        def embed(params, dev):
+            x = torch.from_numpy(batch).to(dev)[..., None]
+            with torch.no_grad():
+                x = seanet_apply(build_encoder_plan(mcfg), params["encoder"], x, mcfg)
+                x = transformer_forward(params["encoder_transformer"], mcfg, x)
+                return causal_conv1d(x, params["downsample"]["w"], params["downsample"].get("b"),
+                                     stride=mcfg.downsample_stride, pad_mode="replicate").float()
+
+        x = embed(mimi, "cpu")
+        x_err = float((embed(codec.params, self.dev).cpu() - x).abs().max() / x.abs().max())
+        q = mimi["quantizer"]
+        n_sem = mcfg.num_semantic_quantizers
+        differ, firsts, worst = np.zeros(codec.num_codebooks, int), 0, 0.0
+        for b, (c, r) in enumerate(zip(card, cpu)):
+            check(c.shape == r.shape == (codec.num_codebooks, math.ceil(lens[b] / hop)),
+                  f"codes {c.shape} vs {r.shape}")
+            differ += (c != r).sum(axis=1)
+            for t in np.nonzero((c != r).any(axis=0))[0]:
+                for side, levels in (("semantic", range(0, n_sem)),
+                                     ("acoustic", range(n_sem, codec.num_codebooks))):
+                    res = x[b, t] @ q[side]["in_proj"]
+                    for k in levels:
+                        emb = q[side]["embed"][k - levels[0]]
+                        if c[k, t] != r[k, t]:
+                            s = res @ emb.T - 0.5 * (emb * emb).sum(-1)
+                            gap = float(s[r[k, t]] - s[c[k, t]]) / float(s.max() - s.min())
+                            worst = max(worst, gap)
+                            firsts += 1
+                            break
+                        res = res - emb[int(r[k, t])]
+        n = sum(int(r.size) for r in cpu)
+        log(f"[12 data] (i) MimiCodec.encode_batch, 6 ragged utterances {lens} samples, "
+            f"{codec.num_codebooks} codebooks, f32, TF32 off: {int(differ.sum())} of {n} codes differ "
+            f"card vs CPU, by level {differ.tolist()}; {firsts} first differences, the largest "
+            f"score gap {worst:.3e} of the score range (gate {RVQ_NEAR_TIE}); pre-RVQ embedding "
+            f"max abs diff {x_err:.3e} of its max")
+        check(worst <= RVQ_NEAR_TIE, f"a differing code is not a near tie ({worst})")
+
+    def _pipe_encode(self, codec, rows, smi):
+        """(ii) the 192 utterances through encode_dataset_rows at the CLI's
+        batch size; the device's busy share and top kernels over one batch."""
+        from smoltts_torch.data_pipeline.encode_audio import encode_dataset_rows
+        from smoltts_torch.utils.profiling import device_op_summary, trace
+
+        torch = self.torch
+        sr, hop = codec.config.sampling_rate, codec.config.samples_per_frame
+        sizes = [r["audio"]["array"].size for r in rows]
+        encode_dataset_rows(codec, rows[:PIPE_BATCH], batch_size=PIPE_BATCH)  # warm (cuDNN)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        encoded = encode_dataset_rows(codec, rows, batch_size=PIPE_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        audio_s = sum(sizes) / sr
+        padded = sum(len(sizes[i:i + PIPE_BATCH]) * math.ceil(max(sizes[i:i + PIPE_BATCH]) / hop)
+                     for i in range(0, len(sizes), PIPE_BATCH)) * hop / sr
+        check(len(encoded) == len(rows) and all(
+            r["codes"].shape == (8, math.ceil(n / hop)) for r, n in zip(encoded, sizes)),
+            "encoded rows' shapes")
+        flops = mimi_encoder_flops(codec.config, codec.num_codebooks) * padded
+        log(f"[12 data] (ii) encode_dataset_rows {len(rows)} utterances ({audio_s:.1f} audio-s, "
+            f"{padded:.1f} s with each batch padded to its longest) at batch {PIPE_BATCH} on {smi}: "
+            f"{wall:.3f} s, {audio_s / wall:.1f} audio-s/s by host clock after a sync; "
+            f"{flops / 1e12:.2f} TFLOP, bound {flops / F32_FLOPS:.3f} s at {F32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s f32 (TF32 off); peak max_memory_allocated {peak / 2**30:.2f} GiB")
+
+        captured = []
+        real_profile = torch.profiler.profile
+
+        class Capture(real_profile):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                captured.append(self)
+
+        with tempfile.TemporaryDirectory() as log_dir:
+            torch.cuda.synchronize()
+            with mock.patch("torch.profiler.profile", Capture), trace(log_dir):
+                t0 = time.perf_counter()
+                encode_dataset_rows(codec, rows[:PIPE_BATCH], batch_size=PIPE_BATCH)
+                window = (time.perf_counter() - t0) * 1e6  # the codes are on the host
+            summary = device_op_summary(log_dir, top_k=10**6)
+            (path,) = Path(log_dir).glob("*.pt.trace.json")
+            kernels = kernel_intervals(json.loads(path.read_text())["traceEvents"])
+        prof = captured[0]
+        busy = busy_us(kernels)
+        rows_ka = [e for e in prof.key_averages() if _on_device(e)
+                   and not e.key.startswith(("Memcpy", "Memset"))]
+        ka_count = sum(e.count for e in rows_ka)
+        ka_us = sum(_self_device_ms(e) for e in rows_ka) * 1e3
+        sum_count = sum(c for _, _, c in summary)
+        sum_us = sum(us for _, us, _ in summary)
+        log(f"[12 data] (ii) one batch of {PIPE_BATCH} under utils.profiling.trace: {window / 1e3:.1f} ms "
+            f"host window, device busy {busy / 1e3:.1f} ms (share {busy / window:.4f}); "
+            f"device_op_summary {sum_count} kernels {sum_us / 1e3:.3f} ms, the profiler's own "
+            f"rows {ka_count} kernels {ka_us / 1e3:.3f} ms")
+        check(sum_count == ka_count and abs(sum_us - ka_us) <= 0.01 * ka_us,
+              "device_op_summary disagrees with the profiler's own kernel rows")
+        for name, us, count in summary[:8]:
+            log(f"[12 data]   {us / 1e3:9.3f} ms x{count:4d}  {name[:110]}")
+        return encoded
+
+    def _pipe_tokenize_and_train(self, encoded, cfg, mimi, mcfg, init_dir, smi):
+        """(iii) filter, tokenize and pack with the project_gutenberg_v2
+        config, a 150M byte-level init made by create_bytelevel_init, 3
+        train steps at 16 x 768 on the packed rows, SmolTTS on the dir."""
+        from smoltts_torch import SmolTTS
+        from smoltts_torch.config import DualARConfig, ModelType, TrainingConfig
+        from smoltts_torch.data_pipeline.create_init import create_bytelevel_init
+        from smoltts_torch.data_pipeline.prompt import PipelinePromptEncoder, TokenizationConfig
+        from smoltts_torch.data_pipeline.tokenize_dataset import (
+            SyspromptEncoder, _load_tokenizer, process_rows,
+        )
+        from smoltts_torch.io.checkpoint import load_params
+        from smoltts_torch.io.safetensors import save_file
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.tokenizer import TokenConfig
+        from smoltts_torch.train.data import batch_iterator
+        from smoltts_torch.train.trainer import batch_to, init_train_state, make_train_step
+
+        torch, dev = self.torch, self.dev
+        t0 = time.perf_counter()
+        create_bytelevel_init(init_dir, pipe_lm_config(), seed=0, device=dev)
+        t_init = time.perf_counter() - t0
+        cfg.tokenization.tokenizer_path = str(init_dir)
+        enc = PipelinePromptEncoder(_load_tokenizer(cfg.tokenization.tokenizer_path),
+                                    TokenizationConfig(duplicate_code_0=cfg.tokenization.duplicate_code_0))
+        t0 = time.perf_counter()
+        packed = process_rows(encoded, cfg, enc, SyspromptEncoder(cfg, enc))
+        t_tok = time.perf_counter() - t0
+        cap = cfg.audio.frame_rate * cfg.audio.max_sample_secs
+        kept = sum(r["codes"].shape[-1] <= cap for r in encoded)
+        widths = sorted(r["ground_truth"].shape[-1] for r in packed)
+        check(all(w <= cfg.packing.max_sequence_length for w in widths), f"widths {widths}")
+        log(f"[12 data] (iii) create_bytelevel_init 150m on the card + write: {t_init:.2f} s; "
+            f"filter (<= {cap} frames) kept {kept} of {len(encoded)}, tokenize + pack "
+            f"(project_gutenberg_v2: {len(cfg.speaker.speaker_names)} speakers, packing "
+            f"{cfg.packing.max_sequence_length}) -> {len(packed)} rows in {t_tok:.3f} s, "
+            f"{len(encoded) / t_tok:.1f} utterance rows/s on the host; packed widths min "
+            f"{widths[0]} median {widths[len(widths) // 2]} max {widths[-1]}, fill "
+            f"{sum(widths) / (len(widths) * cfg.packing.max_sequence_length):.4f}")
+
+        lm_cfg = DualARConfig.from_json_file(init_dir)
+        tok = TokenConfig.from_tokenizer(ModelType.smoltts_v0(), enc.tokenizer, lm_cfg)
+        params = load_params(init_dir, lm_cfg, dtype=torch.bfloat16, device=dev)
+        tc = TrainingConfig(batch_size=TRAIN_BATCH, learning_rate=5e-4, lr_start=1e-3,
+                            lr_warmup_steps=70_000, weight_decay=0.01, gradient_clip=1.0)
+        batches = batch_iterator(packed, batch_size=TRAIN_BATCH, semantic_pad_id=tok.pad_id,
+                                 max_len=cfg.packing.max_sequence_length, seed=0, epochs=3)
+        state, tx = init_train_state(params, tc)
+        step = make_train_step(lm_cfg, tc, tx)
+        losses, times = [], []
+        for i in range(3):
+            batch = batch_to(next(batches), dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch, i)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+        del state, tx, step, params
+        save_file(mimi_hf_state(mimi, mcfg), init_dir / "mimi.safetensors")
+        tts = SmolTTS(init_dir, generation_settings=GenerationSettings(
+            default_temp=0.7, default_fast_temp=0.7, min_p=0.05, max_new_tokens=8,
+            audio_only_constraint=True), quantize="int8+kv8", seed=1, device=dev)
+        pcm = tts("A line from the packed rows.")
+        check(pcm.ndim == 1 and bool(np.isfinite(pcm).all()), f"PCM {pcm.shape}")
+        log(f"[12 data] (iii) 3 train steps (150M bf16, remat + dropout 0.1) on batches of "
+            f"{TRAIN_BATCH} x {cfg.packing.max_sequence_length} from batch_iterator over the packed rows: losses "
+            f"{losses}, {[round(t, 1) for t in times]} ms by host; SmolTTS(init dir, 'int8+kv8') "
+            f"-> {pcm.size} PCM samples, finite")
+        del tts
+
+    def _pipe_warm_start(self, out_dir, smi):
+        """(iv) convert_lm_init on a seeded state dict at SmolLM2-135M's
+        published widths, a random fast trunk merged in, save_params,
+        load_params onto the card: bit for bit, and a finite forward_train."""
+        from smoltts_torch.data_pipeline.create_init import convert_lm_init
+        from smoltts_torch.io.checkpoint import (
+            load_params, params_from_state_dict, save_params, state_dict_from_params,
+        )
+        from smoltts_torch.models.dual_ar import forward_train, init_params
+        from smoltts_torch.train.loss import compute_losses
+
+        torch, dev = self.torch, self.dev
+        cfg, hf = warm_start_config()
+        t0 = time.perf_counter()
+        hf_state = smollm_state(hf, seed=3)
+        t_make = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        conv = convert_lm_init(hf_state, cfg, hf["num_hidden_layers"])
+        del hf_state
+        state = state_dict_from_params(init_params(cfg, torch.Generator().manual_seed(4),
+                                                   device="cpu"), cfg)
+        check(set(conv) <= set(state), f"keys outside the schema {set(conv) - set(state)}")
+        state.update({k: torch.from_numpy(v) for k, v in conv.items()})
+        save_params(params_from_state_dict(state, cfg), cfg, out_dir)
+        del state
+        t_conv = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_params(out_dir, cfg, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        back = state_dict_from_params(loaded, cfg)
+        check(all(back[k].dtype == torch.float32 and np.array_equal(back[k].cpu().numpy(), v)
+                  for k, v in conv.items()), "the loaded tensors differ from convert_lm_init's")
+        rng = np.random.default_rng(6)
+        tokens = rng.integers(0, cfg.codebook_size, (2, cfg.num_rows, 129)).astype(np.int64)
+        tokens[:, 0] = rng.integers(0, cfg.vocab_size, (2, 129))
+        t = torch.from_numpy(tokens).to(dev)
+        with torch.no_grad():
+            out = forward_train(loaded, cfg, t[..., :-1])
+            loss = compute_losses(out.token_logits, out.codebook_logits, t[..., 1:], True).total
+        check(math.isfinite(float(loss)), f"warm-start loss {float(loss)}")
+        n = sum(v.size for v in conv.values())
+        log(f"[12 data] (iv) warm start from a seeded state dict at SmolLM2-135M widths "
+            f"({hf}) made in {t_make:.1f} s: convert_lm_init ({len(conv)} tensors, {n} values, "
+            f"embeddings {tuple(conv['embeddings.weight'].shape)}) + random fast trunk + "
+            f"save_params in {t_conv:.1f} s; load_params onto the card in {t_load:.2f} s, every "
+            f"converted tensor equal bit for bit; forward_train loss {float(loss):.4f} (finite)")
+        del loaded, back, out
+
+    def _pipe_bpe(self, tok_dir, smi):
+        """(v) the checked-in BPE fixture through load_tokenizer, without HF
+        `tokenizers`: the fixture's HF ids for every string."""
+        from smoltts_torch.bpe import BPETokenizer
+        from smoltts_torch.tokenizer import load_tokenizer
+
+        fx = json.loads((ROOT / "tests" / "data" / "torch_bpe_fixture.json")
+                        .read_text(encoding="utf-8"))
+        tok_dir.mkdir(parents=True)
+        (tok_dir / "tokenizer.json").write_text(json.dumps(fx["tokenizer"]), encoding="utf-8")
+        has_hf = "present" if importlib.util.find_spec("tokenizers") else "absent"
+        with mock.patch.dict(sys.modules, {"tokenizers": None}):  # unimportable here
+            t0 = time.perf_counter()
+            tok = load_tokenizer(tok_dir)
+            t_load = time.perf_counter() - t0
+            bad = [c["text"] for c in fx["cases"] if tok.encode(c["text"]) != c["ids"]]
+        check(isinstance(tok, BPETokenizer), f"load_tokenizer gave {type(tok).__name__}")
+        check(not bad, f"ids differ from the fixture's HF ids for {bad[:3]}")
+        text = " ".join(c["text"] for c in fx["cases"])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tok.encode(text)
+        rate = 5 * len(text) / (time.perf_counter() - t0)
+        log(f"[12 data] (v) BPE fixture ({len(fx['tokenizer']['model']['merges'])} merges, "
+            f"{tok.vocab_size} tokens; HF tokenizers {has_hf} on this machine, blocked for the "
+            f"check): load_tokenizer {t_load:.3f} s, ids == the fixture's HF ids for all "
+            f"{len(fx['cases'])} strings; encode "
+            f"{rate:.0f} characters/s on the host")
+
+    def _pipe_preview(self, encoded, codec, mcfg):
+        """(vi) serve_preview on 127.0.0.1 over the encoded rows: GET
+        /random returns a WAV of frames x 1920 samples."""
+        from smoltts_torch.data_pipeline import preview
+        from smoltts_torch.server.http import HttpServer
+
+        has_ds = "installed" if importlib.util.find_spec("datasets") else "not installed"
+        started = []
+        real_run = HttpServer.run
+
+        def run(app, host, port):
+            started.append(app)
+            real_run(app, host, port)
+
+        import threading
+
+        port = free_port()
+        with mock.patch.object(HttpServer, "run", run):
+            th = threading.Thread(target=preview.serve_preview,
+                                  args=(encoded, codec, "127.0.0.1", port), daemon=True)
+            th.start()
+            deadline = time.time() + 60
+            while not port_open(port):
+                check(time.time() < deadline and th.is_alive(), "the preview did not start")
+                time.sleep(0.05)
+        try:
+            t0 = time.perf_counter()
+            status, _, body = request(port, "GET", "/random")
+            t_req = time.perf_counter() - t0
+            _, _, page = request(port, "GET", "/")
+        finally:
+            started[0].stop()
+            th.join(timeout=30)
+        check(not th.is_alive(), "the preview thread did not stop")
+        hop = mcfg.samples_per_frame
+        lengths = {44 + 2 * r["codes"].shape[-1] * hop for r in encoded}
+        check(status == 200 and body[:4] == b"RIFF" and len(body) in lengths,
+              f"/random -> {status}, {len(body)} bytes")
+        check(b'src="/random"' in page, "the preview page")
+        log(f"[12 data] (vi) serve_preview on 127.0.0.1 (stdlib server): GET /random -> WAV of "
+            f"{(len(body) - 44) // 2 // hop} frames x {hop} samples in {t_req * 1e3:.0f} ms; "
+            f"HF datasets {has_ds} on this machine (the phase does not use it)")
+
     def _f32_trees(self):
         """Phase 6's trees: 150M f32 int8 LM and the Mimi f32 int8 tree."""
         from smoltts_torch.codec.mimi import init_mimi_params
@@ -2570,6 +3045,7 @@ class Smoke:
             (4, self.phase4_sampler), (5, self.phase5_main_path), (6, self.phase6_greedy_e2e),
             (7, self.phase7_library), (8, self.phase8_engine), (9, self.phase9_server),
             (10, self.phase10_gates), (11, self.phase11_training),
+            (12, self.phase12_data_pipeline),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

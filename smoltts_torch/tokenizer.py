@@ -176,12 +176,13 @@ def save_byte_level_tokenizer(out_dir: Union[str, Path], codebook_size: int = 20
     return ByteTokenizer(codebook_size)
 
 
-def load_tokenizer(checkpoint_dir: Union[str, Path]) -> ByteTokenizer:
+def load_tokenizer(checkpoint_dir: Union[str, Path]):
     """The checkpoint's tokenizer: `ByteTokenizer()` when the dir has no
     `tokenizer.json`; for a byte-level `tokenizer.json` (ids 0-255 the
     latin-1 characters, 256.. the special tokens, no merges) the
-    `ByteTokenizer` of its codebook size. Any other vocabulary raises
-    NotImplementedError (the port has no BPE tokenizer)."""
+    `ByteTokenizer` of its codebook size; for any other `tokenizer.json` the
+    port's BPE tokenizer (`smoltts_torch.bpe`), which raises
+    NotImplementedError for a component it does not read."""
     p = Path(checkpoint_dir) / "tokenizer.json"
     if not p.exists():
         return ByteTokenizer()
@@ -201,9 +202,8 @@ def load_tokenizer(checkpoint_dir: Union[str, Path]) -> ByteTokenizer:
         and [(t.get("id"), t.get("content")) for t in added]
         == [(256 + i, s) for i, s in enumerate(expected)]
     )
-    if not byte_level:
-        raise NotImplementedError(
-            f"{p}: not the byte-level vocabulary (ids 0-255 latin-1 characters, then the "
-            f"special tokens); the port has no BPE tokenizer yet"
-        )
-    return ByteTokenizer(codebook_size)
+    if byte_level:
+        return ByteTokenizer(codebook_size)
+    from smoltts_torch.bpe import BPETokenizer
+
+    return BPETokenizer(d)

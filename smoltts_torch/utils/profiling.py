@@ -1,16 +1,63 @@
-"""Serving metrics: `ServingMetrics` keeps the counters the HTTP server
-reports on `/metrics` (first-audio latency percentiles, audio-seconds per
-second) as running aggregates. The JAX package's `trace` and
-`device_op_summary` wrap its profiler; the port's counterparts over
-`torch.profiler` are still to come.
+"""Profiling and serving metrics.
+
+- `trace(log_dir)`: a `torch.profiler` window (CUDA activity when a card is
+  present) that writes a Chrome trace into `log_dir`.
+- `device_op_summary(log_dir, top_k)`: device time per kernel name in the
+  newest trace of `log_dir`.
+- `ServingMetrics`: the counters the HTTP server reports on `/metrics`
+  (first-audio latency percentiles, audio-seconds per second) as running
+  aggregates.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import json
 import threading
 import time
-from typing import Dict, List, Optional
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+TRACE_SUFFIX = ".pt.trace.json"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "smoltts_trace"):
+    """Profile the block; on exit write `log_dir/smoltts_<ns>.pt.trace.json`
+    (a Chrome trace, Perfetto-readable). Yields `log_dir`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield log_dir
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out / f"smoltts_{time.time_ns()}{TRACE_SUFFIX}"))
+
+
+def device_op_summary(log_dir: str, top_k: int = 25) -> List[Tuple[str, float, int]]:
+    """[(kernel name, total us, count)] over the device kernel events
+    (category "kernel") of the newest trace under `log_dir`, the largest
+    total first; [] when there is no trace or it holds no kernel."""
+    files = sorted(Path(log_dir).rglob(f"*{TRACE_SUFFIX}"), key=lambda p: p.stat().st_mtime)
+    if not files:
+        return []
+    events = json.loads(files[-1].read_text())
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    totals: collections.Counter = collections.Counter()
+    counts: collections.Counter = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            totals[e["name"]] += float(e.get("dur", 0.0))
+            counts[e["name"]] += 1
+    return [(n, us, counts[n]) for n, us in totals.most_common(top_k)]
 
 
 class ServingMetrics:

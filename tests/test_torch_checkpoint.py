@@ -232,7 +232,18 @@ def test_tokenizer_without_file_and_non_byte_level(tmp_path):
     d["model"]["merges"] = [["a", "b"]]
     d["model"]["vocab"]["ab"] = 256 + 64 + 32
     (tmp_path / "tokenizer.json").write_text(json.dumps(d))
-    with pytest.raises(NotImplementedError, match="tokenizer.json"):
+    # a vocabulary with merges is BPE: the port's BPE tokenizer, HF's ids
+    from smoltts_torch.bpe import BPETokenizer
+
+    tok = load_tokenizer(tmp_path)
+    assert isinstance(tok, BPETokenizer)
+    hf = Tokenizer.from_file(str(tmp_path / "tokenizer.json"))
+    for text in ("abc ab", "<|im_start|>user\nab<|im_end|>", "x\u00e9ab"):
+        assert tok.encode(text) == hf.encode(text).ids, text
+    # a component the port does not read is refused by name
+    d["normalizer"] = {"type": "Lowercase"}
+    (tmp_path / "tokenizer.json").write_text(json.dumps(d))
+    with pytest.raises(NotImplementedError, match="tokenizer.json normalizer 'Lowercase'"):
         load_tokenizer(tmp_path)
 
 

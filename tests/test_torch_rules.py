@@ -23,7 +23,7 @@ MODULES = sorted(
 )
 # JAX and the JAX package, then packages the card's machine does not have
 BLOCKED = ("jax", "jaxlib", "smoltts_tpu", "safetensors", "tokenizers", "pydantic", "ml_dtypes",
-           "transformers")
+           "transformers", "regex")
 
 
 def test_imports_without_jax_in_a_fresh_interpreter():
@@ -71,11 +71,26 @@ def test_static_scan_has_no_jax_imports(path):
     assert not bad, f"{path}: {bad}"
 
 
+def test_datasets_is_imported_only_inside_functions():
+    """HF `datasets` is missing on the card's machine: the CLIs import it
+    inside `main` (or the function that reads a dataset), never at a
+    module's top level."""
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in names if m.split(".")[0] == "datasets"], path
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from smoltts_torch import SmolTTS
     from smoltts_torch.codec.config import MimiConfig
     from smoltts_torch.codec.mimi import decode_stream_init, init_mimi_params, load_mimi
     from smoltts_torch.config import TrainingConfig, tiny_debug_config
+    from smoltts_torch.data_pipeline.create_init import create_bytelevel_init
+    from smoltts_torch.data_pipeline.encode_audio import MimiCodec
+    from smoltts_torch.data_pipeline.encode_audio import main as encode_main
     from smoltts_torch.io.convert import convert
     from smoltts_torch.io.checkpoint import load_params
     from smoltts_torch.lm.decode import init_decode_state
@@ -123,11 +138,17 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: run_quant_gates_cached(cfg, tok, settings, mcfg, {}, {}, {}, {}, int8=True,
                                        kv8=True, cache_path=str(tmp_path / "gates.json")),
         lambda: convert(tmp_path / "missing", tmp_path / "missing.json", tmp_path / "out"),
+        # the data pipeline
+        lambda: MimiCodec({}, mcfg),
+        lambda: create_bytelevel_init(tmp_path / "init", cfg),
+        lambda: encode_main(["--dataset-path", str(tmp_path / "missing"), "--out-path",
+                             str(tmp_path / "codes"), "--mimi-path", str(tmp_path / "m.st")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    assert not (tmp_path / "gates.json").exists() and not (tmp_path / "out").exists()
+    for name in ("gates.json", "out", "init", "codes"):
+        assert not (tmp_path / name).exists(), name
     # an explicit CPU device is honoured
     assert init_decode_state(cfg, 1, 16, device="cpu").k.device.type == "cpu"
 
