@@ -90,6 +90,18 @@ Phases:
      dir; (iv) convert_lm_init at SmolLM2-135M's widths loads bit for bit, a
      finite forward_train; (v) the BPE fixture's HF ids without
      `tokenizers`; (vi) serve_preview's /random WAV
+  13 parallel serving (smoltts_torch.parallel) at 150M width, the kernels
+     built here first: (i) two ranks on cuda:0 over gloo (NCCL refuses two
+     ranks on one device), greedy f32 int8, B=8, S=1024, bucket 256,
+     prefill + 16 stream steps with flushes, meshes 1 x 2 (tensor
+     parallel) and 2 x 1 (data parallel): codes == this phase's single
+     process, PCM within 1e-3, K1-K3 launches per rank; K2 at a tensor-
+     parallel rank's heads (6/2, 3/1) vs its plain version; (ii)
+     DecodeEngine.shard over 2 x 1 with phase 8 (i)'s 12 prompts in three
+     waves == the unsharded engine; (iii) a one-rank NCCL mesh running
+     (i)'s pipeline == the single process; (iv) for the record, a sharded
+     stream step at phase 5's operating point, ms per step per rank beside
+     phase 5's (two ranks sharing one card: no scaling figure)
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -662,6 +674,244 @@ SERVER_TEXTS = [
 ]
 
 
+# ---- parallel serving (phase 13) ---------------------------------------------
+#
+# Module-level, so that the ranks `run_ranks` spawns (each re-imports this
+# file as __mp_main__) can call them by name.
+
+P13_FRAMES = 17  # prefill + 16 stream steps
+P13_TAILS = (8, 16)  # LM and codec ring tails: a flush every 7 frames
+P13_MAIN_TAILS = (128, 64)  # phase 5's: a flush every 31 frames
+ENGINE_WAVES = {0: range(0, 6), 4: range(6, 9), 10: range(9, 12)}  # phases 8 (i), 13: step -> prompts
+
+
+def chatml_prompts(cfg, B, T):
+    """B ChatML prompts (system speaker, user text, assistant) right-padded
+    to T, with the byte tokenizer: (token_cfg, prompt [B, R, T], lens [B])."""
+    from smoltts_torch.lm.prompt import PromptEncoder
+    from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+
+    tok = ByteTokenizer(cfg.codebook_size)
+    token_cfg = TokenConfig.smoltts_v0(cfg.codebook_size)
+    pe = PromptEncoder.from_config(tok, cfg, token_cfg)
+    texts = [
+        "Hello there, how are you today?", "The quick brown fox jumps.",
+        "Streaming speech, one frame at a time.", "It is a fine day for a walk.",
+        "Numbers: one, two, three, four.", "Please read this sentence aloud.",
+    ]
+    prompt = np.zeros((B, cfg.num_rows, T), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for b in range(B):
+        turn = np.concatenate([
+            pe.encode_text_turn("system", f"<|speaker:{b % 49}|>"),
+            pe.encode_text_turn("user", texts[b % len(texts)][: 8 + (b * 7) % 40]),
+            pe.encode_text_turn("assistant"),
+        ], axis=1)
+        check(turn.shape[1] <= T, "prompt longer than the prompt bucket")
+        prompt[b, :, : turn.shape[1]] = turn
+        lens[b] = turn.shape[1]
+    return token_cfg, prompt, lens
+
+
+def p13_trees(dev, dtype):
+    """The 150M config and the phase's trees: LM and Mimi fused and int8,
+    their other leaves in `dtype`, from seed 0 (phase 6's in f32, phase 5's
+    in bf16)."""
+    import torch
+
+    from smoltts_torch.codec.config import MimiConfig
+    from smoltts_torch.codec.mimi import init_mimi_params
+    from smoltts_torch.config import smoltts_byte_150m
+    from smoltts_torch.models.dual_ar import init_params
+    from smoltts_torch.ops.quant import (
+        fuse_decode_params, fuse_mimi_decode_params, quantize_decode_params,
+        quantize_mimi_params,
+    )
+
+    cfg = smoltts_byte_150m().replace(dropout=0.0, use_gradient_checkpointing=False)
+    mcfg = MimiConfig()
+    params = quantize_decode_params(fuse_decode_params(
+        init_params(cfg, torch.Generator().manual_seed(0), dtype=dtype, device=dev)))
+    mimi = quantize_mimi_params(fuse_mimi_decode_params(
+        init_mimi_params(mcfg, seed=0, dtype=dtype, device=dev)))
+    return cfg, mcfg, params, mimi
+
+
+def p13_pipeline(cfg, mcfg, params, mimi, token_cfg, settings, prompt, lens, dev, kv_dtype,
+                 act_dtype, tails=P13_TAILS, mesh=None, tp=False, time_steps=0):
+    """Prefill + P13_FRAMES - 1 stream steps at S=1024, bucket 256, flushing
+    at the tails' cadence; on `mesh`, this rank's slots of the laid-out trees
+    (parallel/serving.py). K1-K3 launches are counted from 0 over the run.
+    With `time_steps`, then ms per further stream step (CUDA events, the
+    state reused as phase 5 times it). Returns numpy codes [F, B, ncb],
+    PCM [B, F * 1920], launches, the heads and the step ms."""
+    import torch
+
+    from smoltts_torch import ops
+    from smoltts_torch.codec.mimi import decode_stream_init
+    from smoltts_torch.lm.decode import init_decode_state
+    from smoltts_torch.lm.pipeline import (
+        flush_cadence, make_flush_step, make_prefill_step, make_stream_step,
+    )
+    from smoltts_torch.models.dual_ar import slow_dims
+    from smoltts_torch.parallel.serving import shard_serving
+
+    B = prompt.shape[0]
+    state = init_decode_state(cfg, B, 1024, dtype=kv_dtype, tail_len=tails[0], device=dev)
+    ms = decode_stream_init(mcfg, B, dtype=act_dtype, tail_len=tails[1],
+                            kv_dtype=torch.int8 if kv_dtype == torch.int8 else None, device=dev)
+    step_mesh, seed = None, 1
+    if mesh is not None:
+        params, state, mimi, ms = shard_serving(params, state, mesh, mimi_params=mimi,
+                                                mimi_state=ms, tensor_parallel=tp, cfg=cfg)
+        step_mesh = mesh if tp else mesh.data_only()
+        n_local = B // mesh.n_data
+        rows = slice(mesh.data * n_local, (mesh.data + 1) * n_local)
+        prompt, lens, seed = prompt[rows], lens[rows], 1 + mesh.data
+    prefill = make_prefill_step(cfg, token_cfg, settings, mcfg, device=dev, mesh=step_mesh)
+    step = make_stream_step(cfg, token_cfg, settings, mcfg, attend_limit=256, device=dev,
+                            mesh=step_mesh)
+    flush, cadence = make_flush_step(device=dev), flush_cadence(state, ms)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    sync(dev)
+    ops.reset_launch_counts()
+    state, ms, gen, o = prefill(params, mimi, state, ms, torch.from_numpy(prompt).to(dev),
+                                torch.from_numpy(lens).to(dev), gen)
+    outs, since = [o], 0
+    for _ in range(P13_FRAMES - 1):
+        if since >= cadence:
+            (state, ms), since = flush(state, ms), 0
+        state, ms, gen, o = step(params, mimi, state, ms, gen)
+        since += 1
+        outs.append(o)
+    sync(dev)
+    launches = dict(ops.LAUNCHES)
+    for o in outs:
+        check(bool(torch.isfinite(o.pcm).all()), "non-finite PCM")
+    step_ms = None
+    if time_steps:
+        state, ms = flush(state, ms)
+        step_ms = time_ms(lambda: step(params, mimi, state, ms, gen), iters=time_steps)
+    dims = slow_dims(cfg, step_mesh)
+    return dict(codes=torch.stack([o.audio_codes for o in outs]).cpu().numpy(),
+                pcm=torch.cat([o.pcm[:, :, 0].float() for o in outs], 1).cpu().numpy(),
+                launches=launches, heads=(dims.n_head, dims.n_kv_head, int(state.k.shape[2])),
+                step_ms=step_ms)
+
+
+def drive_waves(eng, prompts, budgets, waves):
+    """Submit prompts[i] (budget budgets[i]) at the dispatch step `waves`
+    names and step the engine until it drains: each stream's frames."""
+    sid_of, got = {}, {}
+    for step in range(1000):
+        for i in waves.get(step, ()):
+            sid_of[i] = eng.submit(prompts[i], max_frames=budgets[i])
+            got[sid_of[i]] = []
+        for sid, frame in eng.step():
+            got[sid].append(frame)
+        if step > max(waves) and not eng.has_work():
+            break
+    check(not eng.has_work(), "engine did not drain")
+    return [got[sid_of[i]] for i in range(len(prompts))]
+
+
+def p13_engine(cfg, mcfg, params, mimi, token_cfg, dev, mesh=None):
+    """Phase 8 (i)'s engine run (greedy f32, 8 slots, S=1024, bucket 256,
+    12 prompts in three waves), warmed, sharded over `mesh` when given:
+    [(codes [F, ncb], PCM [F, 1920])] per prompt on the leader, None on a
+    follower."""
+    import torch
+
+    from smoltts_torch.lm.engine import DecodeEngine
+    from smoltts_torch.lm.samplers import GenerationSettings
+
+    greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
+    _, padded, lens = chatml_prompts(cfg, 12, 64)
+    prompts = [padded[i, :, : lens[i]] for i in range(12)]
+    budgets = [int(b) for b in np.random.default_rng(8).integers(8, 25, 12)]
+    eng = DecodeEngine(params, cfg, token_cfg, greedy, num_slots=8, max_seq_len=1024,
+                       kv_dtype=torch.float32, prompt_bucket=64, mimi_params=mimi,
+                       mimi_cfg=mcfg, attend_buckets=[256], device=dev)
+    if mesh is not None:
+        eng.shard(mesh)
+        if not eng.is_leader:
+            eng.follow()
+            return None
+    try:
+        eng.warm()
+        frames = drive_waves(eng, prompts, budgets, ENGINE_WAVES)
+    finally:
+        eng.release_followers()
+    return [(np.stack([f["audio_codes"] for f in fs]), np.stack([f["pcm"] for f in fs]))
+            for fs in frames]
+
+
+def p13_rank(rank):
+    """One of phase 13's two ranks on cuda:0 over gloo: (i) the greedy f32
+    pipeline over 1 x 2 and 2 x 1, (ii) DecodeEngine.shard over 2 x 1, (iv)
+    a timed sharded stream step at phase 5's operating point on both."""
+    import torch
+    import torch.distributed as dist
+
+    from smoltts_torch.lm.samplers import GenerationSettings
+    from smoltts_torch.ops import _build
+    from smoltts_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()  # built by the parent: this loads it
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    cfg, mcfg, params, mimi = p13_trees(dev, torch.float32)
+    token_cfg, prompt, lens = chatml_prompts(cfg, 8, 64)
+    greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
+    for nd, nm in ((1, 2), (2, 1)):
+        mesh = make_mesh(nd, nm, device=dev)
+        r = p13_pipeline(cfg, mcfg, params, mimi, token_cfg, greedy, prompt, lens, dev,
+                         torch.float32, torch.float32, mesh=mesh, tp=nm > 1)
+        out[f"{nd}x{nm}"] = dict(r, coords=(mesh.data, mesh.model))
+    out["engine"] = p13_engine(cfg, mcfg, params, mimi, token_cfg, dev, make_mesh(2, 1, device=dev))
+    del params, mimi
+    cfg, mcfg, params, mimi = p13_trees(dev, torch.bfloat16)
+    token_cfg, prompt, lens = chatml_prompts(cfg, 64, 64)
+    sampled = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05)
+    for nd, nm in ((1, 2), (2, 1)):
+        mesh = make_mesh(nd, nm, device=dev)
+        r = p13_pipeline(cfg, mcfg, params, mimi, token_cfg, sampled, prompt, lens, dev,
+                         torch.int8, torch.bfloat16, tails=P13_MAIN_TAILS, mesh=mesh,
+                         tp=nm > 1, time_steps=10)
+        out[f"timed {nd}x{nm}"] = dict(step_ms=r["step_ms"], launches=r["launches"],
+                                       codes=r["codes"], coords=(mesh.data, mesh.model))
+    return out
+
+
+def p13_nccl_rank(rank):
+    """Phase 13 (iii): a one-rank NCCL mesh running (i)'s pipeline in the
+    tensor-parallel layout, so the model-axis sums run on NCCL; a data-axis
+    gather of the codes as well."""
+    import torch
+    import torch.distributed as dist
+
+    from smoltts_torch.lm.samplers import GenerationSettings
+    from smoltts_torch.ops import _build
+    from smoltts_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, mcfg, params, mimi = p13_trees(dev, torch.float32)
+    token_cfg, prompt, lens = chatml_prompts(cfg, 8, 64)
+    greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
+    mesh = make_mesh(1, 1, device=dev)
+    r = p13_pipeline(cfg, mcfg, params, mimi, token_cfg, greedy, prompt, lens, dev,
+                     torch.float32, torch.float32, mesh=mesh, tp=True)
+    codes = torch.from_numpy(r["codes"]).to(dev)
+    gathered = mesh.data_gather([codes], 1)[0].cpu().numpy()
+    return dict(r, backend=dist.get_backend(mesh.model_group), gathered=gathered)
+
+
 class Smoke:
     K1_DRAWS = 8192  # level-0 draws of one hidden row (phase 3)
     K3_DRAWS = 131072  # draws of one logits row (phase 4)
@@ -676,6 +926,7 @@ class Smoke:
         self._lm = None
         self.stream_rate = None  # phase 5's median audio-s/s, shown beside phase 7's chunk step
         self.served_rates = []  # phase 8 (ii)'s audio-s/s per rep, shown beside phase 9 (ii)
+        self.stream_step_ms = None  # phase 5's stream step ms, shown beside phase 13 (iv)
 
     # ---- shared state -------------------------------------------------------
 
@@ -1343,29 +1594,7 @@ class Smoke:
         return rec
 
     def _prompts(self, cfg, B, T):
-        from smoltts_torch.lm.prompt import PromptEncoder
-        from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
-
-        tok = ByteTokenizer(cfg.codebook_size)
-        token_cfg = TokenConfig.smoltts_v0(cfg.codebook_size)
-        pe = PromptEncoder.from_config(tok, cfg, token_cfg)
-        texts = [
-            "Hello there, how are you today?", "The quick brown fox jumps.",
-            "Streaming speech, one frame at a time.", "It is a fine day for a walk.",
-            "Numbers: one, two, three, four.", "Please read this sentence aloud.",
-        ]
-        prompt = np.zeros((B, cfg.num_rows, T), np.int32)
-        lens = np.zeros((B,), np.int32)
-        for b in range(B):
-            turn = np.concatenate([
-                pe.encode_text_turn("system", f"<|speaker:{b % 49}|>"),
-                pe.encode_text_turn("user", texts[b % len(texts)][: 8 + (b * 7) % 40]),
-                pe.encode_text_turn("assistant"),
-            ], axis=1)
-            check(turn.shape[1] <= T, "prompt longer than the prompt bucket")
-            prompt[b, :, : turn.shape[1]] = turn
-            lens[b] = turn.shape[1]
-        return token_cfg, prompt, lens
+        return chatml_prompts(cfg, B, T)
 
     def _run_stream(self, cfg, params, mcfg, mimi, token_cfg, settings, prompt, lens, n_frames,
                     kv_dtype, act_dtype, check_output=None):
@@ -1469,6 +1698,7 @@ class Smoke:
             voc_ms = time_ms(lambda: mimi_decode_step(mimi, mcfg, mstate, codes), iters=10)
         step = make_stream_step(cfg, token_cfg, settings, mcfg, attend_limit=256, device=self.dev)
         step_ms = time_ms(lambda: step(params, mimi, state, mstate, gen), iters=10)
+        self.stream_step_ms = step_ms
         log(f"[5 main] per step: stream step {step_ms:.3f} ms = LM frame {lm_ms:.3f} ms "
             f"+ vocoder {voc_ms:.3f} ms (CUDA events, each timed alone)")
         try:
@@ -1811,7 +2041,6 @@ class Smoke:
         prompts = [padded[i, :, : lens[i]] for i in range(12)]
         budgets = [int(b) for b in np.random.default_rng(8).integers(8, 25, 12)]
         S, bucket = 1024, 256
-        waves = {0: range(0, 6), 4: range(6, 9), 10: range(9, 12)}  # step -> prompts
         t0 = time.perf_counter()
 
         def single(p, n):
@@ -1842,17 +2071,7 @@ class Smoke:
                                mimi_cfg=mcfg, attend_buckets=[bucket], chunk_frames=chunk,
                                emit_format=emit, device=dev)
             eng.warm()
-            sid_of, got = {}, {}
-            for step in range(1000):
-                for i in waves.get(step, ()):
-                    sid_of[i] = eng.submit(prompts[i], max_frames=budgets[i])
-                    got[sid_of[i]] = []
-                for sid, frame in eng.step():
-                    got[sid].append(frame)
-                if step > max(waves) and not eng.has_work():
-                    break
-            check(not eng.has_work(), "engine did not drain")
-            return [got[sid_of[i]] for i in range(12)], eng.stats
+            return drive_waves(eng, prompts, budgets, ENGINE_WAVES), eng.stats
 
         torch.backends.cudnn.deterministic = True  # int16/ulaw frames vs the f32 run's
         try:
@@ -3024,20 +3243,111 @@ class Smoke:
 
     def _f32_trees(self):
         """Phase 6's trees: 150M f32 int8 LM and the Mimi f32 int8 tree."""
-        from smoltts_torch.codec.mimi import init_mimi_params
-        from smoltts_torch.models.dual_ar import init_params
-        from smoltts_torch.ops.quant import (
-            fuse_decode_params, fuse_mimi_decode_params, quantize_decode_params,
-            quantize_mimi_params,
-        )
+        _, _, params, mimi = p13_trees(self.dev, self.torch.float32)
+        return params, mimi
+
+    # ---- phase 13: parallel serving ---------------------------------------
+
+    def phase13_parallel(self):
+        """smoltts_torch.parallel at 150M width. The references run in this
+        process: (i)'s pipeline and (ii)'s engine unsharded; K2 at the ranks'
+        tensor-parallel heads against its plain version. Then two ranks on
+        cuda:0 over gloo (p13_rank) and one NCCL rank (p13_nccl_rank), each
+        under a wall-clock limit; a rank that fails or times out fails the
+        phase."""
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.ops import attention as A
+        from smoltts_torch.parallel.launch import run_ranks
 
         torch, dev = self.torch, self.dev
-        cfg, _, mcfg, _ = self.lm()
-        params = quantize_decode_params(fuse_decode_params(
-            init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32, device=dev)))
-        mimi = quantize_mimi_params(fuse_mimi_decode_params(
-            init_mimi_params(mcfg, seed=0, dtype=torch.float32, device=dev)))
-        return params, mimi
+        f32, bf16 = torch.float32, torch.bfloat16
+        t_phase = time.perf_counter()
+        smi = nvidia_smi()
+        cfg, mcfg, params, mimi = p13_trees(dev, f32)
+        token_cfg, prompt, lens = chatml_prompts(cfg, 8, 64)
+        greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
+        ref = p13_pipeline(cfg, mcfg, params, mimi, token_cfg, greedy, prompt, lens, dev, f32, f32)
+        eng_ref = p13_engine(cfg, mcfg, params, mimi, token_cfg, dev)
+        del params, mimi
+        torch.cuda.empty_cache()
+        expect = {"fast_loop": P13_FRAMES, "decode_attention": cfg.n_layer * (P13_FRAMES - 1),
+                  "sample_categorical": P13_FRAMES}
+        check(ref["launches"] == expect, f"single-process launches {ref['launches']}")
+
+        # K2 at the heads a tensor-parallel rank holds: 150M's 12/4 at TP 2
+        # and 4, with (i)'s f32 cache and (iv)'s kv8 one
+        for i, (label, B, H, KV, W, kv8, dtype) in enumerate((
+                ("TP 2, (i) f32", 8, 6, 2, 8, False, f32), ("TP 4, f32", 8, 3, 1, 8, False, f32),
+                ("TP 2, (iv) kv8 bf16", 64, 6, 2, 128, True, bf16),
+                ("TP 4, kv8 bf16", 64, 3, 1, 128, True, bf16))):
+            (args,), ref_args, _ = self._k2_case(B, H, KV, 64, 1024, 256, W, kv8, dtype,
+                                                 seed=130 + i)
+            err = (A.decode_attention_tailed(**args).float()
+                   - A.decode_attention_tailed_plain(**ref_args)).abs().max().item()
+            gate = K2_GATE if dtype == bf16 else K2_F32_GATE
+            log(f"[13 parallel] K2 at a rank's heads, {label}: B={B} H={H}/{KV} lim 256 W={W}: "
+                f"max_abs_err {err:.3e} (gate {gate}; route "
+                f"{A.kernel_plan(**args)})")
+            check(err <= gate, f"K2 at {H}/{KV} heads: error {err}")
+
+        log("[13 parallel] NCCL refuses two ranks on one device: the two ranks share cuda:0 "
+            "over gloo, which stages every collective through the host")
+        t0 = time.perf_counter()
+        outs = run_ranks(p13_rank, 2, timeout=600, backend="gloo", device="cuda")
+        t_ranks = time.perf_counter() - t0
+        for key, heads in (("1x2", (6, 2, 2)), ("2x1", (12, 4, 4))):
+            rs = sorted((o[key] for o in outs), key=lambda r: r["coords"])
+            if key == "1x2":  # the model axis: both ranks hold every slot
+                check(all(np.array_equal(r["codes"], rs[0]["codes"]) for r in rs),
+                      "the model-axis ranks' codes differ")
+                codes, pcm = rs[0]["codes"], rs[0]["pcm"]
+            else:
+                codes = np.concatenate([r["codes"] for r in rs], axis=1)
+                pcm = np.concatenate([r["pcm"] for r in rs], axis=0)
+            err = float(np.abs(pcm - ref["pcm"]).max())
+            equal = np.array_equal(codes, ref["codes"])
+            log(f"[13 parallel] (i) mesh {key} ({outs[0]['backend']}, {outs[0]['device']} and "
+                f"{outs[1]['device']}): 150M f32 int8 greedy B=8 S=1024 bucket 256, prefill + "
+                f"{P13_FRAMES - 1} stream steps, flushes every 7: codes == single process "
+                f"{equal}, PCM max abs diff {err:.3e} (gate 1e-3); heads per rank (q, kv, "
+                f"cache) {[r['heads'] for r in rs]}; K1-K3 launches per rank "
+                f"{[r['launches'] for r in rs]} (expected {expect})")
+            check(equal and err <= 1e-3, f"mesh {key} differs from the single process")
+            check(all(r["heads"] == heads for r in rs), f"mesh {key} heads {[r['heads'] for r in rs]}")
+            check(all(r["launches"] == expect for r in rs), f"mesh {key} launches")
+        got = outs[0]["engine"]
+        check(outs[1]["engine"] is None, "a follower returned frames")
+        bad = [i for i, ((c, _), (rc, _)) in enumerate(zip(got, eng_ref)) if not np.array_equal(c, rc)]
+        err = max(float(np.abs(p - rp).max()) for (_, p), (_, rp) in zip(got, eng_ref))
+        log(f"[13 parallel] (ii) DecodeEngine.shard over 2 x 1, greedy f32, 8 slots, 12 prompts "
+            f"in 3 waves: streams whose codes differ from the unsharded engine {bad}, PCM max abs "
+            f"diff {err:.3e} (gate 1e-3)")
+        check(not bad and err <= 1e-3, "the sharded engine differs from the unsharded one")
+        for key in ("1x2", "2x1"):
+            rs = [o[f"timed {key}"] for o in outs]
+            log(f"[13 parallel] (iv) for the record, two ranks sharing one card with gloo "
+                f"staging through the host (no scaling figure): mesh {key}, phase 5's point "
+                f"(150M int8+kv8, B=64, sampled, S=1024, bucket 256): stream step ms per rank "
+                f"{[r['step_ms'] for r in rs]} (CUDA events, as phase 5); phase 5's stream step "
+                f"in this run {self.stream_step_ms or 'not measured (phase 5 not run)'} ms; "
+                f"launches per rank {[r['launches'] for r in rs]} on {smi}")
+            check(all(r["launches"] == expect for r in rs), f"timed mesh {key} launches")
+        a, b = (o["timed 1x2"]["codes"] for o in outs)
+        check(np.array_equal(a, b), "sampled codes differ across the model axis")
+        t0 = time.perf_counter()
+        nccl = run_ranks(p13_nccl_rank, 1, timeout=300, backend="nccl", device="cuda")[0]
+        err = float(np.abs(nccl["pcm"] - ref["pcm"]).max())
+        equal = np.array_equal(nccl["codes"], ref["codes"])
+        log(f"[13 parallel] (iii) one-rank {nccl['backend']} mesh, (i)'s pipeline in the "
+            f"tensor-parallel layout (model-axis sums and a data-axis gather live): codes == "
+            f"single process {equal}, gathered codes equal {np.array_equal(nccl['gathered'], nccl['codes'])}, "
+            f"PCM max abs diff {err:.3e}; launches {nccl['launches']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(nccl["backend"] == "nccl" and equal and err <= 1e-3
+              and np.array_equal(nccl["gathered"], nccl["codes"])
+              and nccl["launches"] == expect, "the NCCL mesh differs from the single process")
+        log(f"[13 parallel] phase 13 took {time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} s "
+            f"the two gloo ranks) on {smi}")
 
     def run(self, phases=None):
         table = [
@@ -3045,7 +3355,7 @@ class Smoke:
             (4, self.phase4_sampler), (5, self.phase5_main_path), (6, self.phase6_greedy_e2e),
             (7, self.phase7_library), (8, self.phase8_engine), (9, self.phase9_server),
             (10, self.phase10_gates), (11, self.phase11_training),
-            (12, self.phase12_data_pipeline),
+            (12, self.phase12_data_pipeline), (13, self.phase13_parallel),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

@@ -50,6 +50,7 @@ from smoltts_torch.codec.transformer import (
 )
 from smoltts_torch.interop import TensorTree, tree_map
 from smoltts_torch.io.safetensors import load_file
+from smoltts_torch.parallel.mesh import chunk_ranges
 
 MimiParams = Dict[str, object]
 
@@ -279,10 +280,14 @@ class MimiStreamState(NamedTuple):
 
 
 def decode_stream_init(cfg: MimiConfig, batch: int, dtype=torch.float32, tail_len: int = 64,
-                       kv_dtype=None, device=None) -> MimiStreamState:
+                       kv_dtype=None, device=None, mesh=None) -> MimiStreamState:
     """`kv_dtype=torch.int8` puts the codec transformer's ring in kv8 mode.
-    `device=None` means CUDA."""
+    `device=None` means CUDA. On a `mesh` (parallel/mesh.py) it is this
+    rank's state, batch / n_data slots."""
     dev = resolve_device(device)
+    if mesh is not None:
+        (b0, b1), = chunk_ranges(batch, mesh.n_data, mesh.data, "slots")
+        batch = b1 - b0
     K = cfg.downsample_kernel
     return MimiStreamState(
         upsample_tail=convtr_stream_init(batch, cfg.hidden_size, K, cfg.downsample_stride, dtype, dev),

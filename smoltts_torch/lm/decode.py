@@ -31,6 +31,7 @@ from smoltts_torch.ops import fast_loop as fast_ops
 from smoltts_torch.ops import sampling as sampling_ops
 from smoltts_torch.ops.fast_loop import layer_slices, mlp
 from smoltts_torch.ops.quant import mm, quantize_kv
+from smoltts_torch.parallel.mesh import chunk_ranges, kv_head_range
 from smoltts_torch.tokenizer import TokenConfig
 
 
@@ -71,15 +72,23 @@ def init_decode_state(
     dtype=torch.bfloat16,
     tail_len: int = 128,
     device=None,
+    mesh=None,
 ) -> DecodeState:
     """`dtype=torch.int8` selects kv8: int8 history + f32 per-vector scales,
-    bf16 tails. `device=None` means CUDA."""
+    bf16 tails. `device=None` means CUDA. On a `mesh` (parallel/mesh.py) it
+    is this rank's state: batch_size / n_data slots and the kv heads of its
+    model coordinate."""
     dev = resolve_device(device)
     S = max_seq_len or cfg.max_seq_len
     kv8 = dtype == torch.int8
     tail_dtype = torch.bfloat16 if kv8 else dtype
-    kv_shape = (cfg.n_layer, batch_size, cfg.n_local_heads, S, cfg.head_dim)
-    tail_shape = (cfg.n_layer, batch_size, cfg.n_local_heads, tail_len, cfg.head_dim)
+    n_kv = cfg.n_local_heads
+    if mesh is not None:
+        (b0, b1), = chunk_ranges(batch_size, mesh.n_data, mesh.data, "slots")
+        kv0, kv1 = kv_head_range(n_kv, mesh.n_model, mesh.model)
+        batch_size, n_kv = b1 - b0, kv1 - kv0
+    kv_shape = (cfg.n_layer, batch_size, n_kv, S, cfg.head_dim)
+    tail_shape = (cfg.n_layer, batch_size, n_kv, tail_len, cfg.head_dim)
     i32 = dict(dtype=torch.int32, device=dev)
     return DecodeState(
         k=torch.zeros(kv_shape, dtype=dtype, device=dev),
@@ -169,11 +178,17 @@ def _cached_sdpa_multi(q, k, v, valid_bqk):
     return out.reshape(B, Tq, n_head * hd)
 
 
+def _row_parallel(y, mesh):
+    """A row-parallel product's partial sum completed over the model axis."""
+    return y if mesh is None else mesh.model_sum(y)
+
+
 def _decode_trunk(layer_params, x, k_cache, v_cache, pos, dims: AttnDims, cos, sin, *,
-                  norm_eps, k_scale=None, v_scale=None):
+                  norm_eps, k_scale=None, v_scale=None, mesh=None):
     """Prefill trunk over T new tokens on fresh slots: writes k/v at
     pos..pos+T-1 and attends causally over the T tokens themselves (T = 1
-    attends over the cache through the decode-attention kernel)."""
+    attends over the cache through the decode-attention kernel). On a
+    tensor-parallel `mesh` the model axis sums after wo and after w2."""
     B, T, _ = x.shape
     h = x
     for l, lp in enumerate(layer_slices(layer_params, k_cache.shape[0])):
@@ -196,14 +211,14 @@ def _decode_trunk(layer_params, x, k_cache, v_cache, pos, dims: AttnDims, cos, s
             att = attn_ops.decode_attention(
                 q[:, 0].contiguous(), k_cache[l], v_cache[l], pos, k_scale=ksc, v_scale=vsc
             )[:, None, :]
-        h = h + mm(att, lp["wo"])
+        h = h + _row_parallel(mm(att, lp["wo"]), mesh)
         hn = rms_norm(h, lp["ffn_norm"], norm_eps)
-        h = h + mlp(hn, lp)
+        h = h + _row_parallel(mlp(hn, lp), mesh)
     return h
 
 
 def _decode_trunk_tailed(layer_params, x, state: DecodeState, tail_pos, dims: AttnDims, cos,
-                         sin, *, norm_eps, attend_limit=None):
+                         sin, *, norm_eps, attend_limit=None, mesh=None):
     """Single-token trunk over the split cache: the history is read-only,
     each layer's k/v go to the tail at column `state.phase` (in place)."""
     L, S = state.k.shape[0], state.k.shape[3]
@@ -232,9 +247,9 @@ def _decode_trunk_tailed(layer_params, x, state: DecodeState, tail_pos, dims: At
             k_scale=None if state.k_scale is None else state.k_scale[l, :, :, :lim],
             v_scale=None if state.v_scale is None else state.v_scale[l, :, :, :lim],
         )[:, None, :]
-        h = h + mm(att, lp["wo"])
+        h = h + _row_parallel(mm(att, lp["wo"]), mesh)
         hn = rms_norm(h, lp["ffn_norm"], norm_eps)
-        h = h + mlp(hn, lp)
+        h = h + _row_parallel(mlp(hn, lp), mesh)
     return h
 
 
@@ -271,21 +286,25 @@ def _frame_from_hidden(params, cfg: DualARConfig, token_cfg: TokenConfig, hidden
 
 
 def prefill(params, cfg: DualARConfig, token_cfg: TokenConfig, settings, state: DecodeState,
-            prompt: torch.Tensor, prompt_len: torch.Tensor, generator):
+            prompt: torch.Tensor, prompt_len: torch.Tensor, generator, mesh=None):
     """Process the prompt [B, num_rows, T] (right-padded; true lengths
     `prompt_len`), fill the history, and emit the first frame. Requires
-    fresh slots (pos == 0)."""
+    fresh slots (pos == 0). `mesh`: the parallel/mesh.py mesh whose model
+    axis splits `params` and the state's kv heads (parallel/serving.py);
+    None for a whole tree."""
     B, R, T = prompt.shape
     sem_end = token_cfg.semantic_end_id or token_cfg.semantic_start_id
     x = embed_merge(params, cfg, prompt, embed_mask_mode="semantic_range",
-                    semantic_start_id=token_cfg.semantic_start_id, semantic_end_id=sem_end)
+                    semantic_start_id=token_cfg.semantic_start_id, semantic_end_id=sem_end,
+                    mesh=mesh)
     positions = state.pos[:, None] + torch.arange(T, device=prompt.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
-    h = _decode_trunk(params["layers"], x, state.k, state.v, state.pos, slow_dims(cfg), cos, sin,
-                      norm_eps=cfg.norm_eps, k_scale=state.k_scale, v_scale=state.v_scale)
+    h = _decode_trunk(params["layers"], x, state.k, state.v, state.pos, slow_dims(cfg, mesh), cos,
+                      sin, norm_eps=cfg.norm_eps, k_scale=state.k_scale, v_scale=state.v_scale,
+                      mesh=mesh)
     prompt_len = prompt_len.to(torch.int32)
     h_last = h[torch.arange(B, device=h.device), (prompt_len - 1).long()]
-    token_logits = token_head(params, cfg, h_last[:, None, :])[:, 0]
+    token_logits = token_head(params, cfg, h_last[:, None, :], mesh)[:, 0]
     out = _frame_from_hidden(params, cfg, token_cfg, h_last, token_logits, state.finished,
                              generator, settings)
     new_state = state._replace(
@@ -300,20 +319,22 @@ def prefill(params, cfg: DualARConfig, token_cfg: TokenConfig, settings, state: 
 
 
 def decode_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, settings,
-                 state: DecodeState, generator, attend_limit: Optional[int] = None):
+                 state: DecodeState, generator, attend_limit: Optional[int] = None, mesh=None):
     """One 80 ms frame for every slot: slow step + fast micro-loop.
-    `attend_limit` bounds attention reads; requires max(pos) < attend_limit."""
+    `attend_limit` bounds attention reads; requires max(pos) < attend_limit.
+    `mesh` as in `prefill`."""
     sem_end = token_cfg.semantic_end_id or token_cfg.semantic_start_id
     x = embed_merge(params, cfg, state.prev_tokens[:, :, None], embed_mask_mode="semantic_range",
-                    semantic_start_id=token_cfg.semantic_start_id, semantic_end_id=sem_end)
+                    semantic_start_id=token_cfg.semantic_start_id, semantic_end_id=sem_end,
+                    mesh=mesh)
     cos, sin = rope_cos_sin(state.pos[:, None], cfg.head_dim, cfg.rope_base)
     tail_pos = state.tail_pos.clone()
     tail_pos.index_copy_(1, state.phase.reshape(1), state.pos[:, None])
     state = state._replace(tail_pos=tail_pos)
-    h = _decode_trunk_tailed(params["layers"], x, state, tail_pos, slow_dims(cfg), cos, sin,
-                             norm_eps=cfg.norm_eps, attend_limit=attend_limit)
+    h = _decode_trunk_tailed(params["layers"], x, state, tail_pos, slow_dims(cfg, mesh), cos, sin,
+                             norm_eps=cfg.norm_eps, attend_limit=attend_limit, mesh=mesh)
     h_last = h[:, 0]
-    token_logits = token_head(params, cfg, h_last[:, None, :])[:, 0]
+    token_logits = token_head(params, cfg, h_last[:, None, :], mesh)[:, 0]
     out = _frame_from_hidden(params, cfg, token_cfg, h_last, token_logits, state.finished,
                              generator, settings)
     new_state = state._replace(

@@ -17,8 +17,14 @@ where the port differs:
   greedy streams token for token.
 - `warm` runs every program once on a throwaway state of the engine's
   shapes, so the kernels are built and loaded and cuDNN has chosen its
-  algorithms before the first request; `shard` waits for the parallelism
-  slice.
+  algorithms before the first request.
+- `shard` lays the engine over a `torch.distributed` mesh
+  (parallel/serving.py) as a leader and followers: rank 0 runs the host
+  logic below unchanged and broadcasts a small plan per dispatch (freed
+  slots, admissions, the step's K, bucket and flush); every other rank runs
+  `follow()` and executes the plans until `release_followers()`. Each rank
+  steps its own slots; a step's outputs are gathered over the data axis
+  onto every rank before the leader's snapshot.
 - Fetched frames are numpy arrays; f32-format PCM is float32 also for a
   bf16 vocoder (numpy has no bfloat16).
 
@@ -163,6 +169,11 @@ class DecodeEngine:
         self.fetch_every = max(1, int(fetch_every))
         self._queue: "collections.deque" = collections.deque()
 
+        # Set by shard(): the mesh the steps run on (its model axis folded away
+        # without tensor parallelism), and the generator admissions draw from
+        # (alike on every rank, so every rank prefills the same first frames).
+        self.mesh = None
+        self._admit_generator = self.generator
         self.state = self._fresh_state()
         self._slot_ids = torch.arange(num_slots, device=self.device)
         # Slots freed since the last dispatch, marked finished on the device at
@@ -215,7 +226,7 @@ class DecodeEngine:
     def _fresh_state(self):
         """All slots idle (finished)."""
         state = init_decode_state(self.cfg, self.num_slots, self.S, dtype=self.kv_dtype,
-                                  tail_len=self.tail_len, device=self.device)
+                                  tail_len=self.tail_len, device=self.device, mesh=self.mesh)
         return state._replace(finished=torch.ones_like(state.finished))
 
     def _fresh_mimi_state(self):
@@ -226,12 +237,54 @@ class DecodeEngine:
         kv8 = self.kv_dtype == torch.int8
         return decode_stream_init(self.mimi_cfg, self.num_slots,
                                   dtype=torch.bfloat16 if kv8 else self.kv_dtype,
-                                  kv_dtype=torch.int8 if kv8 else None, device=self.device)
+                                  kv_dtype=torch.int8 if kv8 else None, device=self.device,
+                                  mesh=self.mesh)
 
     def shard(self, mesh, tensor_parallel: bool = False, shard_tables: bool = False):
-        raise NotImplementedError(
-            "DecodeEngine.shard: laying the engine over a device mesh is the port's "
-            "parallelism slice (ROADMAP A7); the engine runs on one card")
+        """Lay the engine's trees out over `mesh` (parallel/mesh.py,
+        parallel/serving.py): decode slots and the vocoder's per-slot state
+        split over `data`; the slow trunk split Megatron-style over `model`
+        when tensor_parallel, else the params replicate. Call on every rank
+        BEFORE warm()/submit(); then rank 0 leads (submit, step,
+        dispatch_step, EngineLoop) and every other rank calls `follow()`.
+        Generators: the steps draw from the engine's seed plus the data
+        coordinate (the model axis draws alike), admissions from the seed."""
+        from smoltts_torch.parallel.serving import shard_serving
+
+        if self.mesh is not None or self._streams or self._queue:
+            raise RuntimeError("DecodeEngine.shard: call once, before submit()")
+        if self.num_slots % mesh.n_data:
+            raise ValueError(f"DecodeEngine.shard: {self.num_slots} slots do not split over "
+                             f"a data axis of {mesh.n_data}")
+        if mesh.device is not None and torch.device(mesh.device) != self.device:
+            raise ValueError(f"DecodeEngine.shard: the mesh's device {mesh.device} is not the "
+                             f"engine's {self.device}")
+        self.params, self.state, self.mimi_params, self.mimi_state = shard_serving(
+            self.params, self.state, mesh, mimi_params=self.mimi_params,
+            mimi_state=self.mimi_state, tensor_parallel=tensor_parallel,
+            shard_tables=shard_tables, cfg=self.cfg)
+        self.mesh = mesh if tensor_parallel else mesh.data_only()
+        seed = self.generator.initial_seed()
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + mesh.data)
+        self._admit_generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._stream_steps.clear()
+        self._chunk_steps.clear()
+        return self
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank runs the host logic (always, unsharded)."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _owned(self, slots: List[int]) -> Tuple[List[int], List[int]]:
+        """(positions in `slots` of the slots this rank holds, their local
+        indices)."""
+        if self.mesh is None:
+            return list(range(len(slots))), list(slots)
+        n_local = self.num_slots // self.mesh.n_data
+        lo = self.mesh.data * n_local
+        pairs = [(i, s - lo) for i, s in enumerate(slots) if lo <= s < lo + n_local]
+        return [i for i, _ in pairs], [s for _, s in pairs]
 
     @property
     def active(self) -> int:
@@ -280,7 +333,7 @@ class DecodeEngine:
         if lim not in self._stream_steps:
             self._stream_steps[lim] = make_stream_step(
                 self.cfg, self.token_cfg, self.settings, self.mimi_cfg, attend_limit=lim,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         return self._stream_steps[lim]
 
     def _chunk_step(self, lim: int):
@@ -289,7 +342,7 @@ class DecodeEngine:
         if lim not in self._chunk_steps:
             self._chunk_steps[lim] = make_chunk_step(
                 self.cfg, self.token_cfg, self.settings, self.mimi_cfg, self.chunk_frames,
-                attend_limit=lim, device=self.device)
+                attend_limit=lim, device=self.device, mesh=self.mesh)
         return self._chunk_steps[lim]
 
     def _advance(self, state, mstate, K: int, lim: int, generator):
@@ -297,7 +350,7 @@ class DecodeEngine:
         finished, slow), pcm or None); a chunk's outputs frame-major [K, B, ...]."""
         if mstate is None:
             state, o = decode_frame(self.params, self.cfg, self.token_cfg, self.settings, state,
-                                    generator, attend_limit=lim)
+                                    generator, attend_limit=lim, mesh=self.mesh)
             return state, None, (o.audio_codes, o.is_audio, o.finished, o.slow_token), None
         if K == 1:
             state, mstate, _, o = self._stream_step(lim)(self.params, self.mimi_params, state,
@@ -316,27 +369,35 @@ class DecodeEngine:
         """Prefill n prompts into a fresh n-slot sub-state and scatter it into
         `slots` of `state` (in place), every field JAX's _admit_fn sets; with
         the vocoder, vocode the first frames on a zero streaming state and
-        scatter it into `mstate`. Returns (state, first FrameOutput, PCM)."""
+        scatter it into `mstate`. Returns (state, first FrameOutput, PCM).
+        Sharded, every rank prefills and vocodes all n prompts and scatters
+        the rows of the slots it holds."""
         from smoltts_torch.codec.mimi import (
             decode_stream_init, mimi_decode_step, reset_stream_slots, scatter_stream_state,
         )
+        from smoltts_torch.parallel.serving import take_slots
 
         n = len(slots)
-        idx = self._upload(np.asarray(slots, np.int64))
-        if mstate is not None:
+        rows, local = self._owned(slots)
+        idx = self._upload(np.asarray(local, np.int64))
+        pick = None if rows == list(range(n)) else self._upload(np.asarray(rows, np.int64))
+        if mstate is not None and rows:
             reset_stream_slots(mstate, idx)
-        sub = init_decode_state(self.cfg, n, self.S, dtype=state.k.dtype, device=self.device)
+        sub = init_decode_state(self.cfg, n, self.S, dtype=state.k.dtype, device=self.device,
+                                mesh=None if self.mesh is None else self.mesh.model_only())
         sub, out = prefill(self.params, self.cfg, self.token_cfg, self.settings, sub,
-                           self._upload(prompt), self._upload(lens), generator)
-        for big, small in ((state.k, sub.k), (state.v, sub.v), (state.k_scale, sub.k_scale),
-                           (state.v_scale, sub.v_scale)):
-            if big is not None:
-                big.index_copy_(1, idx, small)
-        # stale ring-tail entries of a reused slot are invalidated; the
-        # prompt's K/V went straight to the history
-        state.tail_pos.index_fill_(0, idx, -1)
-        for name in ("flushed", "pos", "prev_tokens", "finished"):
-            getattr(state, name).index_copy_(0, idx, getattr(sub, name))
+                           self._upload(prompt), self._upload(lens), generator, mesh=self.mesh)
+        if rows:
+            mine = sub if pick is None else take_slots(sub, pick)
+            for big, small in ((state.k, mine.k), (state.v, mine.v),
+                               (state.k_scale, mine.k_scale), (state.v_scale, mine.v_scale)):
+                if big is not None:
+                    big.index_copy_(1, idx, small)
+            # stale ring-tail entries of a reused slot are invalidated; the
+            # prompt's K/V went straight to the history
+            state.tail_pos.index_fill_(0, idx, -1)
+            for name in ("flushed", "pos", "prev_tokens", "finished"):
+                getattr(state, name).index_copy_(0, idx, getattr(mine, name))
         pcm = None
         if mstate is not None:
             kv8 = mstate.transformer.k_scale is not None
@@ -345,7 +406,9 @@ class DecodeEngine:
             msub, pcm = mimi_decode_step(self.mimi_params, self.mimi_cfg, msub,
                                          out.audio_codes[:, :, None])
             pcm = self._emit_pcm(pcm)
-            scatter_stream_state(mstate, msub, idx)
+            if rows:
+                scatter_stream_state(mstate, msub if pick is None else take_slots(msub, pick),
+                                     idx)
         return state, out, pcm
 
     @torch.no_grad()
@@ -357,10 +420,15 @@ class DecodeEngine:
         throwaway state of the engine's shapes; the engine's state is not
         touched. `buckets` restricts the attend buckets (default all).
         `parallel` is accepted for the JAX signature: nothing here compiles
-        concurrently. `progress` is an optional callable(str)."""
+        concurrently. `progress` is an optional callable(str). Sharded, the
+        leader's call runs it on every rank."""
         del parallel
-        note = progress or (lambda s: None)
         T = prompt_len or self.prompt_bucket
+        if self.mesh is not None:
+            self.mesh.broadcast_object({"warm": (T, buckets)})
+        self._warm(T, buckets, progress or (lambda s: None))
+
+    def _warm(self, T: int, buckets: Optional[List[int]], note) -> None:
         state = self._fresh_state()
         mstate = None if self.mimi_state is None else self._fresh_mimi_state()
         gen = torch.Generator(device=self.device).manual_seed(0)
@@ -423,9 +491,10 @@ class DecodeEngine:
 
     # ------------------------------------------------------------------
 
-    def _admit_pending(self) -> None:
-        """Prefill queued prompts into free slots; enqueue their first frames
-        as urgent records. Batch sizes are quantized to `admit_sizes`."""
+    def _plan_admissions(self) -> list:
+        """Take queued prompts into free slots: [(slots, padded prompt,
+        lengths, stream ids)], batch sizes quantized to `admit_sizes`."""
+        admits = []
         while self._pending and self._free:
             n = min(len(self._pending), len(self._free))
             n = max(s for s in self.admit_sizes if s <= n)  # largest allowed
@@ -436,17 +505,8 @@ class DecodeEngine:
                 self._slot_to_stream[slot] = sid
             prompt, lens = pad_prompts([p for _, p in batch], pad_to_multiple=self.prompt_bucket)
             self._slot_pos[slots] = lens  # true lengths: reads past pos are masked
-            self.state, out, pcm0 = self._admit(self.state, self.mimi_state, slots, prompt, lens,
-                                                self.generator)
-            payload, event = self._snapshot(
-                (out.audio_codes, out.is_audio, out.finished, out.slow_token, pcm0))
-            t_admit = time.monotonic()
-            for sid, _ in batch:
-                if sid in self.timings:
-                    self.timings[sid]["admit"] = t_admit
-            self._enqueue(Record(payload, [(i, sid) for i, (sid, _) in enumerate(batch)], 1,
-                                 urgent=True, meta={}, event=event))
-            self.stats["admissions"] += 1
+            admits.append((slots, prompt, lens, [sid for sid, _ in batch]))
+        return admits
 
     def _enqueue(self, rec: Record) -> None:
         rec = rec._replace(seq=self._seq)
@@ -480,13 +540,16 @@ class DecodeEngine:
         self._to_mark.append(h.slot)
         h.slot = -1
 
-    def _mark_freed(self) -> None:
-        """Mark the slots freed since the last dispatch finished on the device,
-        so they stop consuming sampler work: one index on the device per slot,
-        no host sync. Runs before admission, which may reuse them."""
-        for slot in self._to_mark:
+    def _mark_freed(self, slots: Optional[List[int]] = None) -> None:
+        """Mark freed slots (default: those freed since the last dispatch)
+        finished on the device, so they stop consuming sampler work: one
+        index on the device per slot, no host sync. Runs before admission,
+        which may reuse them."""
+        if slots is None:
+            slots, self._to_mark = self._to_mark, []
+        _, local = self._owned(slots)
+        for slot in local:
             self.state.finished.index_fill_(0, self._slot_ids[slot : slot + 1], True)
-        self._to_mark.clear()
 
     @staticmethod
     def fetch(records: list) -> list:
@@ -592,26 +655,40 @@ class DecodeEngine:
     def dispatch_step(self, admit_only: bool = False) -> None:
         """Admit pending streams and dispatch one frame (or chunk) for all
         live slots; results queue for take_due / fetch / account.
-        admit_only=True admits without advancing the live slots."""
-        self._mark_freed()
-        self._admit_pending()
-        if admit_only:
-            return
+        admit_only=True admits without advancing the live slots. Sharded,
+        the plan goes to every rank first."""
+        marks, self._to_mark = self._to_mark, []
+        admits = self._plan_admissions()
+        advance = None
         live_slots = list(self._slot_to_stream.items())
-        if not live_slots:
+        if not admit_only and live_slots:
+            K = self.chunk_frames if self.mimi_state is not None else 1
+            flush = self._since_flush + K > self._flush_every
+            if flush:
+                self._since_flush = 0
+            # The smallest bucket covering every live position (freed slots
+            # keep advancing on the device, but their output is masked and
+            # dropped).
+            needed = int(max(self._slot_pos[slot] for slot, _ in live_slots)) + K
+            lim = next(b for b in self.attend_buckets if b >= min(needed, self.S))
+            self.last_attend_limit = lim
+            advance = (K, lim, flush)
+        plan = {"marks": marks, "admits": [a[:3] for a in admits], "advance": advance}
+        if self.mesh is not None:
+            self.mesh.broadcast_object(plan)
+        snaps = self._execute(plan)
+        t_admit = time.monotonic()
+        for (payload, event), (_, _, _, sids) in zip(snaps, admits):
+            for sid in sids:
+                if sid in self.timings:
+                    self.timings[sid]["admit"] = t_admit
+            self._enqueue(Record(payload, list(enumerate(sids)), 1, urgent=True, meta={},
+                                 event=event))
+            self.stats["admissions"] += 1
+        if advance is None:
             return
-        K = self.chunk_frames if self.mimi_state is not None else 1
-        if self._since_flush + K > self._flush_every:
-            self.state, self.mimi_state = self._flush(self.state, self.mimi_state)
-            self._since_flush = 0
-        # The smallest bucket covering every live position (freed slots keep
-        # advancing on the device, but their output is masked and dropped).
-        needed = int(max(self._slot_pos[slot] for slot, _ in live_slots)) + K
-        lim = next(b for b in self.attend_buckets if b >= min(needed, self.S))
-        self.last_attend_limit = lim
-        self.state, self.mimi_state, out, pcm = self._advance(self.state, self.mimi_state, K, lim,
-                                                              self.generator)
-        payload, event = self._snapshot((*out, pcm))
+        K = advance[0]
+        payload, event = snaps[-1]
         for slot, _ in live_slots:
             self._slot_pos[slot] += K
         self._since_flush += K
@@ -628,6 +705,54 @@ class DecodeEngine:
             h.frames_dispatched += K
             if h.frames_dispatched >= h.max_frames:
                 self._free_slot(h)
+
+    def _execute(self, plan: dict) -> list:
+        """The device work of one dispatch, on every rank alike: mark freed
+        slots, admit, flush, advance. Returns the leader's snapshots (one per
+        admission, then the step's), the step's outputs gathered over the
+        data axis; a follower returns none."""
+        snaps = []
+        self._mark_freed(plan["marks"])
+        for slots, prompt, lens in plan["admits"]:
+            self.state, out, pcm0 = self._admit(self.state, self.mimi_state, slots, prompt, lens,
+                                                self._admit_generator)
+            if self.is_leader:
+                snaps.append(self._snapshot(
+                    (out.audio_codes, out.is_audio, out.finished, out.slow_token, pcm0)))
+        if plan["advance"] is not None:
+            K, lim, flush = plan["advance"]
+            if flush:
+                self.state, self.mimi_state = self._flush(self.state, self.mimi_state)
+            self.state, self.mimi_state, out, pcm = self._advance(
+                self.state, self.mimi_state, K, lim, self.generator)
+            outs = (*out, pcm)
+            if self.mesh is not None:  # slots are axis 1 of a chunk's frame-major outputs
+                outs = self.mesh.data_gather(outs, 1 if K > 1 else 0)
+            if self.is_leader:
+                snaps.append(self._snapshot(outs))
+        return snaps
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """A follower rank of a sharded engine: run the leader's plans until
+        `release_followers`."""
+        if self.mesh is None or self.is_leader:
+            raise RuntimeError("DecodeEngine.follow: only a follower rank of a sharded "
+                               "engine follows")
+        while True:
+            plan = self.mesh.broadcast_object(None)
+            if plan is None:
+                return
+            if "warm" in plan:
+                T, buckets = plan["warm"]
+                self._warm(T, buckets, lambda s: None)
+            else:
+                self._execute(plan)
+
+    def release_followers(self) -> None:
+        """End the followers' `follow()` (a no-op unsharded)."""
+        if self.mesh is not None and self.is_leader:
+            self.mesh.broadcast_object(None)
 
     def has_work(self) -> bool:
         return bool(self._pending or self._slot_to_stream or self._queue)

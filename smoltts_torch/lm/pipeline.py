@@ -36,16 +36,19 @@ class StreamStepOutput(NamedTuple):
 
 
 def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
-                     mimi_cfg: MimiConfig, attend_limit: Optional[int] = None, device=None):
+                     mimi_cfg: MimiConfig, attend_limit: Optional[int] = None, device=None,
+                     mesh=None):
     """(lm_params, mimi_params, state, mimi_state, generator) ->
     (state', mimi_state', generator, StreamStepOutput). `attend_limit`
-    bounds slow-trunk attention reads (length bucketing)."""
+    bounds slow-trunk attention reads (length bucketing). `mesh`: the
+    parallel/mesh.py mesh of trees laid out by parallel/serving.py (each
+    rank steps its own slots); None for whole trees."""
     resolve_device(device)
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
         state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
-                                  attend_limit=attend_limit)
+                                  attend_limit=attend_limit, mesh=mesh)
         mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
                                            out.audio_codes[:, :, None])
         return state, mimi_state, generator, StreamStepOutput(
@@ -57,15 +60,16 @@ def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Genera
 
 
 def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
-                      mimi_cfg: MimiConfig, device=None):
+                      mimi_cfg: MimiConfig, device=None, mesh=None):
     """(lm_params, mimi_params, state, mimi_state, prompt, prompt_len,
-    generator) -> (state', mimi_state', generator, StreamStepOutput)."""
+    generator) -> (state', mimi_state', generator, StreamStepOutput). On a
+    `mesh` the prompt and lengths are this rank's slots'."""
     resolve_device(device)
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state, mimi_state, prompt, prompt_len, generator):
         state, out = prefill(lm_params, cfg, token_cfg, settings, state, prompt, prompt_len,
-                             generator)
+                             generator, mesh=mesh)
         mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
                                            out.audio_codes[:, :, None])
         return state, mimi_state, generator, StreamStepOutput(
@@ -78,13 +82,13 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
 
 def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
                     mimi_cfg: MimiConfig, frames_per_chunk: int,
-                    attend_limit: Optional[int] = None, device=None):
+                    attend_limit: Optional[int] = None, device=None, mesh=None):
     """(lm_params, mimi_params, state, mimi_state, generator) ->
     (state', mimi_state', generator, StreamStepOutput) over K =
     `frames_per_chunk` frames: PCM [B, K * 1920, 1], codes [B, ncb, K],
     is_audio, slow tokens and finished flags [B, K]. With `attend_limit` the
     caller guarantees max(pos) + K <= attend_limit, and flushes between calls
-    so the K frames fit the tails."""
+    so the K frames fit the tails. `mesh` as in `make_stream_step`."""
     resolve_device(device)
 
     @torch.no_grad()
@@ -92,7 +96,7 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
         pcm, codes, is_audio, slow, finished = [], [], [], [], []
         for _ in range(frames_per_chunk):
             state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
-                                      attend_limit=attend_limit)
+                                      attend_limit=attend_limit, mesh=mesh)
             mimi_state, p = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
                                              out.audio_codes[:, :, None])
             pcm.append(p)

@@ -28,6 +28,7 @@ from smoltts_torch.models.layers import (
     transformer_block,
 )
 from smoltts_torch.ops.quant import QTensor, mm, qindex
+from smoltts_torch.parallel.mesh import head_range
 
 DualARParams = Dict[str, Any]
 
@@ -38,8 +39,13 @@ class TrainForwardResult(NamedTuple):
     hidden_states: torch.Tensor  # [B, T, dim] pre-norm slow output
 
 
-def slow_dims(cfg: DualARConfig) -> AttnDims:
-    return AttnDims(cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.dim)
+def slow_dims(cfg: DualARConfig, mesh=None) -> AttnDims:
+    """The slow trunk's attention dims; on a tensor-parallel `mesh`
+    (parallel/mesh.py) this rank's query heads and the kv heads they read."""
+    if mesh is None or mesh.n_model == 1:
+        return AttnDims(cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.dim)
+    q0, q1, kv0, kv1 = head_range(cfg.n_head, cfg.n_local_heads, mesh.n_model, mesh.model)
+    return AttnDims(q1 - q0, kv1 - kv0, cfg.head_dim, cfg.dim)
 
 
 def fast_dims(cfg: DualARConfig) -> AttnDims:
@@ -140,15 +146,28 @@ def embed_merge(
     embed_mask_mode: str = "row1_zero",
     semantic_start_id: int = 0,
     semantic_end_id: int = 0,
+    mesh=None,
 ) -> torch.Tensor:
     """Row-0 text embedding plus the sum of per-level codebook embeddings,
-    the latter zeroed on positions the mask mode excludes. Returns [B, T, dim]."""
+    the latter zeroed on positions the mask mode excludes. Returns [B, T, dim].
+
+    A `codebook_embeddings` table split by rows over the `mesh`'s model axis
+    is looked up vocab-parallel: each rank takes the ids in its row range,
+    zeros the others, and the model axis sums the result."""
     tokens = tokens.long()
     text_tokens = tokens[:, 0, :]
     text_embeds = params["embeddings"][text_tokens]
     offs = semantic_offsets(cfg, tokens.device)
     cb_tokens = tokens[:, 1:, :] + offs[None, :, None]
-    cb_sum = params["codebook_embeddings"][cb_tokens].sum(dim=1)
+    table = params["codebook_embeddings"]
+    rows = table.shape[0]
+    if mesh is not None and rows != cfg.codebook_size * cfg.num_codebooks:
+        local = cb_tokens - mesh.model * rows
+        hit = (local >= 0) & (local < rows)
+        emb = table[local.clamp(0, rows - 1)]
+        cb_sum = mesh.model_sum(torch.where(hit[..., None], emb, torch.zeros_like(emb)).sum(dim=1))
+    else:
+        cb_sum = table[cb_tokens].sum(dim=1)
     if embed_mask_mode == "row1_zero":
         keep = tokens[:, 1, :] != 0
     elif embed_mask_mode == "semantic_range":
@@ -159,12 +178,18 @@ def embed_merge(
     return text_embeds + cb_sum
 
 
-def token_head(params: DualARParams, cfg: DualARConfig, x: torch.Tensor) -> torch.Tensor:
-    """Vocab logits from the normed slow output (tied or separate head)."""
+def token_head(params: DualARParams, cfg: DualARConfig, x: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+    """Vocab logits from the normed slow output (tied or separate head). A
+    separate head split by columns over the `mesh`'s model axis gives its
+    slice, gathered over that axis."""
     slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
     if cfg.tie_word_embeddings:
         return slow_out @ params["embeddings"].T
-    return mm(slow_out, params["output"])
+    logits = mm(slow_out, params["output"])
+    if mesh is not None and logits.shape[-1] != cfg.vocab_size:
+        logits = mesh.model_gather(logits, -1)
+    return logits
 
 
 def project_fast_in(params: DualARParams, cfg: DualARConfig, x: torch.Tensor) -> torch.Tensor:

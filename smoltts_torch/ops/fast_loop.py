@@ -61,9 +61,33 @@ def layer_slices(stacked: dict, n_layer: int):
     return [{k: qindex(v, l) for k, v in stacked.items()} for l in range(n_layer)]
 
 
+def require_whole_fast_trunk(params, cfg: DualARConfig) -> None:
+    """Raise unless the fast trunk, its head and its table are as wide as
+    `cfg` says. The fast loop has no collective inside it, so a trunk split
+    over a model axis would give partial sums silently; the serving layout
+    (parallel/serving.py) keeps these leaves whole on every rank."""
+    lp = params["fast_layers"]
+    hd = cfg.fast_head_dim
+    widths = [("wqkv", lp["wqkv"], -1, (cfg.fast_n_head + 2 * cfg.fast_n_local_heads) * hd),
+              ("wo", lp["wo"], -2, cfg.fast_n_head * hd),
+              ("w2", lp["w2"], -2, cfg.fast_intermediate_size),
+              ("fast_output", params["fast_output"], -1, cfg.codebook_size),
+              ("fast_embeddings", params["fast_embeddings"], 0, cfg.fast_embedding_rows)]
+    if "w13" in lp:
+        widths.append(("w13", lp["w13"], -1, 2 * cfg.fast_intermediate_size))
+    else:
+        widths += [(k, lp[k], -1, cfg.fast_intermediate_size) for k in ("w1", "w3")]
+    for name, w, axis, want in widths:
+        got = (w.q if isinstance(w, QTensor) else w).shape[axis]
+        if got != want:
+            raise ValueError(f"fast micro-loop: {name} is {got} wide on axis {axis}, the config "
+                             f"says {want}; the fast trunk must be whole on every rank")
+
+
 def fast_micro_loop_plain(params, cfg: DualARConfig, hidden, generator, settings) -> torch.Tensor:
     """Autoregressively pick the codebook levels for one frame. hidden is
     [B, dim] (pre-norm slow output); returns [B, n] int32 codes."""
+    require_whole_fast_trunk(params, cfg)
     B = hidden.shape[0]
     n = cfg.max_fast_seqlen
     fdims = fast_dims(cfg)
@@ -232,6 +256,7 @@ def fused_fast_micro_loop(params, cfg: DualARConfig, hidden, generator, settings
     the plain loop for a CPU tensor. The tree must pass `supports_fused_fast`."""
     if not supports_fused_fast(cfg, params):
         raise ValueError("fused_fast_micro_loop: unsupported config or tree")
+    require_whole_fast_trunk(params, cfg)
     if not hidden.is_cuda:
         return fast_micro_loop_plain(params, cfg, hidden, generator, settings)
     x0 = project_fast_in(params, cfg, hidden).contiguous()

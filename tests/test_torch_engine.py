@@ -479,12 +479,6 @@ def test_warm_leaves_the_engine_state_alone():
     assert eng.stats["dispatches"] == 0 and not eng.has_work()
 
 
-def test_shard_names_the_parallelism_slice():
-    cfg, tok, params = setup()
-    with pytest.raises(NotImplementedError, match="A7"):
-        engine(cfg, tok, params, GenerationSettings(**GREEDY)).shard(None)
-
-
 def test_engine_refuses_the_cpu_unless_asked(monkeypatch):
     cfg, tok, params = setup()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -102,6 +102,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from smoltts_torch.lm.samplers import GenerationSettings
     from smoltts_torch.models.dual_ar import init_params
     from smoltts_torch.ops.quant_gate import run_quant_gates, run_quant_gates_cached
+    from smoltts_torch.parallel.launch import run_ranks
+    from smoltts_torch.parallel.mesh import init_distributed
     from smoltts_torch.server.app import load_core
     from smoltts_torch.server.settings import ServerSettings
     from smoltts_torch.tokenizer import TokenConfig
@@ -143,10 +145,14 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: create_bytelevel_init(tmp_path / "init", cfg),
         lambda: encode_main(["--dataset-path", str(tmp_path / "missing"), "--out-path",
                              str(tmp_path / "codes"), "--mimi-path", str(tmp_path / "m.st")]),
+        # the parallel layer: no process group is joined, no rank is spawned
+        lambda: init_distributed("127.0.0.1:1", 1, 0),
+        lambda: run_ranks(print, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert not torch.distributed.is_initialized()
     for name in ("gates.json", "out", "init", "codes"):
         assert not (tmp_path / name).exists(), name
     # an explicit CPU device is honoured
