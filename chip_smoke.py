@@ -102,6 +102,21 @@ Phases:
      (i)'s pipeline == the single process; (iv) for the record, a sharded
      stream step at phase 5's operating point, ms per step per rank beside
      phase 5's (two ranks sharing one card: no scaling figure)
+  14 parallel training (smoltts_torch.parallel, train/) at 150M width:
+     (i) two ranks on cuda:0 over gloo, f32, B=4, T=768, dropout 0.1 and
+     remat as released, 2 steps (the second with ragged valid-token counts
+     over the data ranks) on meshes 2 x 1, 1 x 2 and 1 x 2 with sequence
+     parallelism: losses, grad_norm and the tree put back together
+     (unshard_params) == this phase's one process within rtol 2e-5 / atol
+     2e-6; (ii) a one-rank NCCL mesh running (i)'s steps == one process,
+     and each gradient-carrying collective on its NCCL group; (iii) for the
+     record, bench_train.py's point (16 x 768 bf16) on 2 x 1 and 1 x 2: ms
+     per step per rank, collectives per step and their bytes, peak memory
+     per rank, beside phase 11 (ii)'s one-process step; (iv) train.main.main
+     --multihost on 2 ranks (1 x 2) writes a checkpoint from the shards,
+     which one process restores, converts (io/convert.py) and serves with
+     SmolTTS(dir, "int8+kv8"): finite PCM; (v) what drawing dropout masks
+     at the global shape costs a rank at 16 x 768, against its own shape
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -912,6 +927,196 @@ def p13_nccl_rank(rank):
     return dict(r, backend=dist.get_backend(mesh.model_group), gathered=gathered)
 
 
+# ---- parallel training (phase 14) --------------------------------------------
+#
+# Module-level, as phase 13's, for the ranks `run_ranks` spawns.
+
+P14_B, P14_T = 4, 768  # (i): f32 at full width and bench_train.py's sequence
+P14_MESHES = ((2, 1, False), (1, 2, False), (1, 2, True))  # (n_data, n_model, sequence parallel)
+P14_SEEDS = (21, 22)  # one per step, the same on every rank
+P14_TOL = dict(rtol=2e-5, atol=2e-6)  # tests/test_multihost.py: a sharded run against one process
+
+
+# (i)'s learning rate. Adam turns a gradient element near its eps (1e-5)
+# into an update of lr / eps per unit gradient, so f32 summation noise in
+# such elements (the tied embedding rows' sums cancel heavily) reaches the
+# parameters scaled by lr, against an absolute atol: at phase 11's lr of
+# 1e-3 a 1 x 2 tree lands one element of 159M at 1.012 of the allowance
+# (PERF.md, PR 11). At 1e-4 the same noise sits a tenth as far from it,
+# while a wrong gradient still moves the tree by ~lr.
+P14_LR = 1e-4
+
+
+def p14_setup(dev, dtype, lr=None):
+    """The released 150M config (dropout 0.1, remat), its seed-0 tree in
+    `dtype` on `dev`, and phase 11's hyperparameters (its learning rate
+    unless `lr`)."""
+    import torch
+
+    from smoltts_torch.config import TrainingConfig, smoltts_byte_150m
+    from smoltts_torch.models.dual_ar import init_params
+
+    cfg = smoltts_byte_150m()
+    check(cfg.use_gradient_checkpointing and cfg.dropout == 0.1, "the released recipe")
+    rates = dict(learning_rate=5e-4, lr_start=1e-3) if lr is None else dict(
+        learning_rate=lr, lr_start=lr)
+    tc = TrainingConfig(**rates, lr_warmup_steps=70_000, weight_decay=0.01, gradient_clip=1.0)
+    return cfg, tc, init_params(cfg, torch.Generator().manual_seed(0), dtype=dtype, device=dev)
+
+
+def p14_batches(cfg, B, T, ragged=True):
+    """Two global batches of B synthetic rows of T; in the second, the rows
+    of data rank 0 of 2 keep 4 valid labels each (ragged counts)."""
+    from smoltts_torch.tokenizer import TokenConfig
+    from smoltts_torch.train.data import collate, synthetic_dataset
+
+    tok = TokenConfig.smoltts_v0()
+    out = []
+    for seed in (0, 1):
+        rows = synthetic_dataset(B, cfg, tok, seq_len=T, seed=seed)
+        out.append(collate([r["ground_truth"] for r in rows], tok.pad_id, max_len=T))
+    if ragged:
+        labels = out[1]["labels"]
+        for r in range(B // 2):
+            keep = labels[r] != -100
+            keep[:, 4:] = False
+            labels[r][~keep] = -100
+    return out
+
+
+def p14_train(cfg, tc, params, batches, dev, mesh=None, sp=False, timed=False):
+    """One step per batch (global batches; on `mesh` this rank's rows of its
+    part of a copy of `params`): metrics per step, the whole tree after
+    (unshard_params), and with `timed` per step its host ms (synchronized),
+    the collectives' count and bytes (collectives.TRAFFIC) and this process's
+    peak memory."""
+    import torch
+
+    from smoltts_torch.interop import tree_map
+    from smoltts_torch.parallel import collectives
+    from smoltts_torch.parallel.mesh import (
+        SEQUENCE_SHARDING, make_global_batch, shard_params, unshard_params,
+    )
+    from smoltts_torch.train.trainer import batch_to, init_train_state, make_train_step
+
+    local = params if mesh is None else shard_params(params, mesh, cfg=cfg)
+    local = tree_map(lambda t: t.clone(), local)  # the update runs in place
+    state, tx = init_train_state(local, tc, mesh=mesh)
+    step = make_train_step(cfg, tc, tx, mesh=mesh,
+                           activation_sharding=SEQUENCE_SHARDING if sp else None)
+    metrics, ms, traffic = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch, seed in zip(batches, itertools.cycle(P14_SEEDS)):
+        batch = batch_to(batch, dev) if mesh is None else make_global_batch(batch, mesh)
+        collectives.reset_traffic()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, seed)
+        metrics.append({k: float(v) for k, v in m.items()})  # waits for the step
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        traffic.append(dict(collectives.TRAFFIC))
+    out = dict(metrics=metrics, ms=ms, traffic=traffic,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not timed:
+        out["params"] = (state.params if mesh is None
+                         else unshard_params(state.params, mesh, cfg))
+    return out
+
+
+def p14_compare(got, want) -> dict:
+    """Leaf-wise |got - want| against P14_TOL: the worst abs error, the worst
+    error over its allowance, the leaves outside it and their elements
+    (the three leaves nearest the edge, by name)."""
+    def named(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from named(tree[k], f"{prefix}{k}.")
+        else:
+            yield prefix[:-1], tree
+
+    worst, bad, elems, by_leaf = 0.0, 0, 0, []
+    for (name, a), (_, b) in zip(named(got), named(want), strict=True):
+        a, b = a.detach().float(), b.detach().float().to(a.device)
+        err = (a - b).abs()
+        over = err / (P14_TOL["atol"] + P14_TOL["rtol"] * b.abs())
+        worst = max(worst, float(err.max()))
+        n = int((over > 1).sum())
+        bad, elems = bad + int(n > 0), elems + n
+        by_leaf.append((float(over.max()), name, n, int((over > 0.5).sum())))
+    by_leaf.sort(reverse=True)
+    return dict(max_abs_err=worst, worst_over_allowance=by_leaf[0][0], leaves_outside=bad,
+                elements_outside=elems, nearest=by_leaf[:3])
+
+
+def p14_rank(rank, ref_path, cli_argv):
+    """One of phase 14's two ranks on cuda:0 over gloo: (i) the f32 steps on
+    each mesh of P14_MESHES, held on rank (0, 0) against the one-process
+    tree at `ref_path`; (iii) bench_train.py's point timed on 2 x 1 and
+    1 x 2; (iv) train.main.main with `cli_argv`."""
+    import torch
+    import torch.distributed as dist
+
+    from smoltts_torch.parallel.mesh import make_mesh
+    from smoltts_torch.train.main import main as train_main
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    cfg, tc, params = p14_setup(dev, torch.float32, P14_LR)
+    batches = p14_batches(cfg, P14_B, P14_T)
+    for nd, nm, sp in P14_MESHES:
+        mesh = make_mesh(nd, nm, device=dev)
+        r = p14_train(cfg, tc, params, batches, dev, mesh, sp)
+        if (mesh.data, mesh.model) == (0, 0):
+            r["vs_one"] = p14_compare(r["params"], torch.load(ref_path, map_location=dev))
+        del r["params"]
+        out[(nd, nm, sp)] = dict(r, coords=(mesh.data, mesh.model))
+        torch.cuda.empty_cache()
+    del params
+    cfg, tc, params = p14_setup(dev, torch.bfloat16)
+    batch = p14_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, ragged=False)[0]
+    for nd, nm in ((2, 1), (1, 2)):
+        mesh = make_mesh(nd, nm, device=dev)
+        out[f"timed {nd}x{nm}"] = p14_train(cfg, tc, params, [batch] * 3, dev, mesh, timed=True)
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    out["cli"] = train_main(cli_argv).step
+    return out
+
+
+def p14_nccl_rank(rank, ref_path):
+    """Phase 14 (ii): (i)'s steps on a one-rank NCCL mesh, and each
+    gradient-carrying collective forward and backward on its NCCL groups."""
+    import torch
+    import torch.distributed as dist
+
+    from smoltts_torch.parallel import collectives as C
+    from smoltts_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, tc, params = p14_setup(dev, torch.float32, P14_LR)
+    mesh = make_mesh(1, 1, device=dev)
+    r = p14_train(cfg, tc, params, p14_batches(cfg, P14_B, P14_T), dev, mesh)
+    r["vs_one"] = p14_compare(r.pop("params"), torch.load(ref_path, map_location=dev))
+    # a group of one rank: every collective is the identity, forward and back
+    g, x = mesh.model_group, torch.randn((3, 8), device=dev, requires_grad=True)
+    C.reset_traffic()
+    ok = []
+    for fn in (lambda t: C._Copy.apply(t, g), lambda t: C._Reduce.apply(t, g),
+               lambda t: C._Gather.apply(t, g, 1, 0, 1, True),
+               lambda t: C._Scatter.apply(t, g, 1, 0, 1, True)):
+        y = fn(x)
+        (gx,) = torch.autograd.grad(y, x, torch.full_like(y, 2.0))
+        ok.append(bool(torch.equal(y, x) and torch.equal(gx, torch.full_like(x, 2.0))))
+    r["collectives"] = dict(ok=ok, traffic=dict(C.TRAFFIC), backend=dist.get_backend(g))
+    return r
+
+
 class Smoke:
     K1_DRAWS = 8192  # level-0 draws of one hidden row (phase 3)
     K3_DRAWS = 131072  # draws of one logits row (phase 4)
@@ -927,6 +1132,7 @@ class Smoke:
         self.stream_rate = None  # phase 5's median audio-s/s, shown beside phase 7's chunk step
         self.served_rates = []  # phase 8 (ii)'s audio-s/s per rep, shown beside phase 9 (ii)
         self.stream_step_ms = None  # phase 5's stream step ms, shown beside phase 13 (iv)
+        self.train_step_ms = None  # phase 11 (ii)'s step ms, shown beside phase 14 (iii)
 
     # ---- shared state -------------------------------------------------------
 
@@ -2791,7 +2997,7 @@ class Smoke:
         check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
         check(losses[-1] < losses[0], f"the loss did not fall over 10 steps: {losses}")
         timed = [t * 1e3 for t in times[2:7]]
-        step_ms = float(np.median(timed))
+        step_ms = self.train_step_ms = float(np.median(timed))
         flops = model_flops_per_step(cfg, B, T)
         log(f"[11 train] 150M bf16, batch {B} x seq {T}, remat + dropout 0.1, on {smi}: step "
             f"{step_ms} ms median of 5 after 2 warm ({timed}); {B * T / step_ms * 1e3} tokens/s; "
@@ -3349,6 +3555,183 @@ class Smoke:
         log(f"[13 parallel] phase 13 took {time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} s "
             f"the two gloo ranks) on {smi}")
 
+    # ---- phase 14: parallel training ----------------------------------------
+
+    def phase14_parallel_training(self):
+        """Training on a mesh at 150M width. The reference runs in this
+        process: (i)'s two f32 steps unsharded. Then two ranks on cuda:0 over
+        gloo (p14_rank: (i), (iii), (iv)'s CLI run) and one NCCL rank
+        (p14_nccl_rank: (ii)); this process restores (iv)'s checkpoint,
+        converts it and serves it."""
+        from smoltts_torch import SmolTTS
+        from smoltts_torch.codec.config import MimiConfig
+        from smoltts_torch.codec.mimi import init_mimi_params
+        from smoltts_torch.config import TrainingConfig
+        from smoltts_torch.io.convert import convert
+        from smoltts_torch.io.safetensors import save_file
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.parallel.launch import run_ranks
+        from smoltts_torch.tokenizer import TokenConfig, save_byte_level_tokenizer
+        from smoltts_torch.train.checkpoint import CheckpointManager
+        from smoltts_torch.train.data import synthetic_dataset
+        from smoltts_torch.train.optim import tree_leaves
+
+        torch, dev = self.torch, self.dev
+        t_phase = time.perf_counter()
+        smi = nvidia_smi()
+        check(importlib.util.find_spec("datasets") is not None,
+              "(iv) needs HF datasets to write the CLI's dataset")
+        from datasets import Dataset, DatasetDict
+
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            cfg, tc, params = p14_setup(dev, torch.float32, P14_LR)
+            ref = p14_train(cfg, tc, params, p14_batches(cfg, P14_B, P14_T), dev)
+            shapes = [t.shape for t in tree_leaves(ref["params"])]
+            torch.save(ref.pop("params"), d / "ref.pt")
+            del params
+            torch.cuda.empty_cache()
+            log(f"[14 train-mesh] (i) one process, 150M f32 B={P14_B} T={P14_T}, dropout 0.1 + "
+                f"remat, lr {P14_LR}, step 2 ragged: {ref['metrics']}; step ms {ref['ms']}")
+
+            # (iv)'s run: a 150M init folder and a small dataset, 1 x 2, bf16
+            (d / "init").mkdir()
+            cfg.save(d / "init" / "config.json")
+            save_byte_level_tokenizer(d / "init", cfg.codebook_size)
+            rows = synthetic_dataset(12, cfg, TokenConfig.smoltts_v0(), seq_len=256, seed=3)
+            as_ds = lambda rs: Dataset.from_dict(
+                {"ground_truth": [r["ground_truth"].tolist() for r in rs]})
+            DatasetDict({"train": as_ds(rows[:8]), "val": as_ds(rows[8:])}).save_to_disk(
+                str(d / "ds"))
+            run = TrainingConfig(init_folder=str(d / "init"), dataset_path=str(d / "ds"),
+                                 checkpoint_path=str(d / "ckpt"), batch_size=2,
+                                 max_sequence_length=256, use_pretrained=False, use_bf16=True,
+                                 learning_rate=5e-4, lr_start=1e-3, lr_warmup_steps=70_000,
+                                 weight_decay=0.01, save_every_n_steps=2, val_every_n_steps=2,
+                                 log_every_n_steps=1, mesh_data_axis=1, mesh_model_axis=2)
+            (d / "run.json").write_text(json.dumps(run.to_dict()))
+            cli = ["--config", str(d / "run.json"), "--device", "cuda", "--max-steps", "2",
+                   "--multihost"]
+
+            self._p14_mask_cost(smi)
+            log("[14 train-mesh] NCCL refuses two ranks on one device: the two ranks share "
+                "cuda:0 over gloo, which stages every collective through the host")
+            t0 = time.perf_counter()
+            outs = run_ranks(p14_rank, 2, str(d / "ref.pt"), cli, timeout=900, backend="gloo",
+                             device="cuda")
+            t_ranks = time.perf_counter() - t0
+            for key in P14_MESHES:
+                rs = [o[key] for o in outs]
+                lead = next(r for r in rs if r["coords"] == (0, 0))
+                worst = {k: max(abs(r["metrics"][i][k] - ref["metrics"][i][k])
+                                for r in rs for i in range(2)) for k in ref["metrics"][0]}
+                ok = all(abs(r["metrics"][i][k] - v) <= P14_TOL["atol"] + P14_TOL["rtol"] * abs(v)
+                         for r in rs for i in range(2) for k, v in ref["metrics"][i].items())
+                nd, nm, sp = key
+                log(f"[14 train-mesh] (i) mesh {nd}x{nm}{' + SP' if sp else ''} "
+                    f"({outs[0]['backend']}, {outs[0]['device']} and {outs[1]['device']}): losses "
+                    f"and grad_norm of both steps vs one process, max abs diff {worst} "
+                    f"(rtol 2e-5, atol 2e-6: {ok}); the tree put back together vs one process "
+                    f"{lead['vs_one']}; step ms per rank {[r['ms'] for r in rs]}")
+                check(ok and lead["vs_one"]["leaves_outside"] == 0,
+                      f"mesh {key} differs from one process")
+
+            nccl = run_ranks(p14_nccl_rank, 1, str(d / "ref.pt"), timeout=300, backend="nccl",
+                             device="cuda")[0]
+            worst = {k: max(abs(nccl["metrics"][i][k] - ref["metrics"][i][k]) for i in range(2))
+                     for k in ref["metrics"][0]}
+            col = nccl["collectives"]
+            log(f"[14 train-mesh] (ii) one-rank {col['backend']} mesh, (i)'s steps: losses and "
+                f"grad_norm max abs diff {worst}, tree {nccl['vs_one']}; copy / reduce / "
+                f"gather (backward reduce-scatter) / reduce-scatter (backward gather) on its "
+                f"NCCL group, identity forward and back {col['ok']}, {col['traffic']}")
+            check(col["backend"] == "nccl" and all(col["ok"])
+                  and col["traffic"]["all_reduce"] == 6
+                  and nccl["vs_one"]["leaves_outside"] == 0
+                  and all(v <= P14_TOL["atol"] + P14_TOL["rtol"] * abs(ref["metrics"][i][k])
+                          for i in range(2) for k, v in
+                          ((k, abs(nccl["metrics"][i][k] - ref["metrics"][i][k]))
+                           for k in ref["metrics"][0])),
+                  "the NCCL mesh differs from one process")
+
+            one = self.train_step_ms or "not measured (phase 11 not run)"
+            for key in ("2x1", "1x2"):
+                rs = [o[f"timed {key}"] for o in outs]
+                check(all(math.isfinite(m["loss"]) for r in rs for m in r["metrics"]),
+                      f"timed {key}: non-finite loss")
+                log(f"[14 train-mesh] (iii) for the record, two ranks sharing one card with "
+                    f"gloo staging through the host (no scaling figure): mesh {key}, 150M bf16 "
+                    f"{TRAIN_BATCH} x {TRAIN_SEQ} global, remat + dropout 0.1: step ms per rank "
+                    f"(after 1 warm) {[r['ms'][1:] for r in rs]}; collectives per step and "
+                    f"their all-reduce bytes per rank {[r['traffic'][1:] for r in rs]}; peak "
+                    f"max_memory_allocated per rank {[r['peak_gib'] for r in rs]} GiB; phase 11 "
+                    f"(ii) one-process step in this run {one} ms on {smi}")
+
+            check(all(o["cli"] == 2 for o in outs), f"CLI steps {[o['cli'] for o in outs]}")
+            latest = CheckpointManager.latest_checkpoint(run.checkpoint_path)
+            check(latest is not None and latest.name == "step_000002", f"latest {latest}")
+            ckpt, n, reinit = CheckpointManager.load(str(latest), run, map_location=dev)
+            check(n == 2 and not reinit and [t.shape for t in tree_leaves(ckpt["params"])] == shapes
+                  and all(t.dtype == torch.bfloat16 for t in tree_leaves(ckpt["params"])),
+                  "the checkpoint from shards is not the whole bf16 tree")
+            del ckpt
+            rel = d / "release"
+            n_params = convert(latest, d / "init" / "config.json", rel, device=dev)
+            save_byte_level_tokenizer(rel, cfg.codebook_size)
+            mcfg = MimiConfig()
+            save_file(mimi_hf_state(init_mimi_params(mcfg, seed=0, device="cpu"), mcfg),
+                      rel / "mimi.safetensors")
+            sampled = GenerationSettings(default_temp=0.7, default_fast_temp=0.7, min_p=0.05,
+                                         max_new_tokens=16, audio_only_constraint=True)
+            pcm = SmolTTS(rel, generation_settings=sampled, quantize="int8+kv8", seed=1,
+                          device=dev)("Hello from a checkpoint written by two ranks.")
+            hop = mcfg.samples_per_frame
+            check(pcm.ndim == 1 and pcm.size > 0 and pcm.size % hop == 0, f"PCM {pcm.shape}")
+            check(bool(np.isfinite(pcm).all()), "PCM not finite")
+            log(f"[14 train-mesh] (iv) train.main.main --multihost on 2 ranks (1 x 2, bf16, "
+                f"batch 2 x 256): 2 steps, rank 0 wrote {latest.name} from the shards; one "
+                f"process restored the whole tree, convert ({n_params} params), SmolTTS(release, "
+                f"'int8+kv8') -> {pcm.size // hop} frames of finite PCM")
+        log(f"[14 train-mesh] phase 14 took {time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} "
+            f"s the two gloo ranks) on {smi}")
+
+    def _p14_mask_cost(self, smi):
+        """(v) What drawing dropout masks at the global shape costs a rank at
+        bench_train.py's 16 x 768 (150M: 12 query over 4 kv heads, 10 slow
+        layers of 6 causal 256 x 256 blocks, 4 fast layers folding 16 frames
+        of 8): each window against a draw at the rank's own shape, CUDA
+        events. Under remat a slow block's mask is drawn three times a step
+        (forward, the layer's recompute, the q-block's own recompute inside
+        it), a fast layer's twice."""
+        from smoltts_torch.models.layers import FoldWindow, KeepWindow, dropout_keep
+
+        dev, B, T, n, F = self.dev, TRAIN_BATCH, TRAIN_SEQ, 8, 16
+        frames = B * T
+        cases = {  # name: (window, local shape, query rows of the drawn block, per step)
+            "TP 1 x 2 slow block": (KeepWindow(b0=0, B=B, q0=6, H=12, KV=4),
+                                   (B, 2, 3, 256, 256), 256, 10 * 6 * 3),
+            "TP 1 x 2 fast layer": (FoldWindow(b0=0, B=frames, q0=6, H=12, KV=4, F=F, n=n),
+                                   (frames // F, 2, 3, F * n, n), F * n, 4 * 2),
+            "DP 2 x 1 slow block": (KeepWindow(b0=B // 2, B=B, q0=0, H=12, KV=4),
+                                   (B // 2, 4, 3, 256, 256), 256, 10 * 6 * 3),
+            "DP 2 x 1 fast layer": (FoldWindow(b0=frames // 2, B=frames, q0=0, H=12, KV=4, F=F,
+                                               n=n), (frames // 2 // F, 4, 3, F * n, n), F * n,
+                                   4 * 2),
+        }
+        extra = {}
+        for name, (win, shape, rows, per_step) in cases.items():
+            local = lambda: dropout_keep(7, 0.1, shape, dev)
+            check(tuple(win.keep(7, 0.1, shape, 0, rows, dev).shape) == shape, name)
+            w_ms = time_ms(lambda: win.keep(7, 0.1, shape, 0, rows, dev), iters=20)
+            l_ms = time_ms(local, iters=20)
+            extra[name] = (per_step * (w_ms - l_ms), w_ms, l_ms, per_step)
+        per_mesh = {m: sum(v[0] for k, v in extra.items() if k.startswith(m))
+                    for m in ("TP", "DP")}
+        log(f"[14 train-mesh] (v) dropout masks at the global shape, 16 x 768: per draw "
+            f"(window ms, the rank's own shape ms, draws a step) "
+            f"{ {k: v[1:] for k, v in extra.items()} }; extra ms a step per rank {per_mesh} "
+            f"on {smi}")
+
     def run(self, phases=None):
         table = [
             (1, self.phase1_build), (2, self.phase2_attention), (3, self.phase3_fast_loop),
@@ -3356,6 +3739,7 @@ class Smoke:
             (7, self.phase7_library), (8, self.phase8_engine), (9, self.phase9_server),
             (10, self.phase10_gates), (11, self.phase11_training),
             (12, self.phase12_data_pipeline), (13, self.phase13_parallel),
+            (14, self.phase14_parallel_training),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

@@ -199,8 +199,9 @@ def tiny_debug_config(**overrides) -> DualARConfig:
 class TrainingConfig:
     """Training-run config: the reference's keys plus the JAX package's extras,
     with its defaults. Unknown keys are ignored (`from_dict`), so every JSON
-    under `config/` loads. On one device, `mesh_data_axis` -1 or 1 and
-    `mesh_model_axis` 1 are the only layouts (ROADMAP A7)."""
+    under `config/` loads. `mesh_data_axis` x `mesh_model_axis` is the mesh
+    of a multi-process run (train/main.py); one process with no process
+    group trains on a 1 x 1 mesh."""
 
     # Core paths and identifiers
     project_name: str = "smoltts_train"

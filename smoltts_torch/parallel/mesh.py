@@ -74,11 +74,6 @@ class Mesh:
         dist.all_reduce(x, group=self.model_group)
         return x
 
-    def model_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Concatenate the model axis's slices of `x` along `dim`, in rank
-        order."""
-        return gather(self.model_group, self.n_model, self.model, [x], dim)[0]
-
     def data_gather(self, tensors: Sequence[Optional[torch.Tensor]], dim) -> list:
         """Concatenate each tensor's data-axis slices along `dim` (one int or
         one per tensor), in rank order, with one collective. None stays None."""
@@ -166,15 +161,22 @@ def init_distributed(coordinator_address: Optional[str] = None,
     dist.init_process_group(**kwargs)
 
 
+def mesh_shape(n_data: int, n_model: int, n: int) -> Tuple[int, int]:
+    """(n_data, n_model) of a mesh over n ranks, n_data -1 meaning all the
+    rest; raises with the JAX package's message when the product is not n."""
+    if n_data == -1:
+        n_data = n // n_model
+    if n_data * n_model != n:
+        raise ValueError(f"mesh {n_data}x{n_model} != {n} devices")
+    return n_data, n_model
+
+
 def make_mesh(n_data: int = -1, n_model: int = 1, device=None) -> Mesh:
     """The (n_data, n_model) mesh over every rank of the initialized default
     group, ranks row-major as `np.arange(world).reshape(n_data, n_model)`.
     Every rank must call it, with the same arguments."""
     n = dist.get_world_size()
-    if n_data == -1:
-        n_data = n // n_model
-    if n_data * n_model != n:
-        raise ValueError(f"mesh {n_data}x{n_model} != {n} devices")
+    n_data, n_model = mesh_shape(n_data, n_model, n)
     grid = np.arange(n).reshape(n_data, n_model)
     rank = dist.get_rank()
     data, model = (int(i) for i in np.argwhere(grid == rank)[0])
@@ -250,10 +252,40 @@ def param_partition_specs(params: dict, shard_tables: bool = False) -> dict:
     return specs
 
 
+def param_shardings(mesh: Mesh, params: dict, shard_tables: bool = False) -> dict:
+    """The spec tree `param_partition_specs` gives; JAX's `param_shardings`
+    binds each spec to its mesh, the port's rank holds the mesh itself."""
+    return param_partition_specs(params, shard_tables=shard_tables)
+
+
 def replicated(mesh: Optional[Mesh] = None) -> tuple:
     """The spec of a tensor every rank holds whole (JAX's `replicated(mesh)`
     is the NamedSharding of it)."""
     return ()
+
+
+def batch_sharding(mesh: Optional[Mesh] = None, accumulate_steps: int = 1) -> tuple:
+    """The spec of a training batch: [B, R, T] split over `data`, or [A, B,
+    R, T] split on B under gradient accumulation (JAX's main.py picks the
+    same two)."""
+    return (None, DATA_AXIS) if accumulate_steps > 1 else (DATA_AXIS,)
+
+
+# The spec of the slow trunk's [B, T, dim] activations under sequence
+# parallelism (JAX's activation_sharding P('data', 'model', None)).
+SEQUENCE_SHARDING = (DATA_AXIS, MODEL_AXIS, None)
+
+
+def make_global_batch(batch: dict, mesh: Mesh, axis: int = 0) -> dict:
+    """This rank's part of a global batch: each array's slice of the data
+    axis along `axis` (`batch_sharding(...).index(DATA_AXIS)`), as a tensor
+    on `mesh.device`. Model ranks of one row get the same rows."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+        (a, b), = chunk_ranges(t.shape[axis], mesh.n_data, mesh.data, f"batch {k}")
+        out[k] = t.narrow(axis, a, b - a).contiguous().to(resolve_device(mesh.device))
+    return out
 
 
 # ---- slicing ----------------------------------------------------------------
@@ -366,3 +398,68 @@ def shard_by_specs(params: dict, specs: dict, mesh: Mesh, cfg) -> dict:
 def shard_params(params: dict, mesh: Mesh, shard_tables: bool = False, *, cfg) -> dict:
     """This rank's part of a DualAR tree under `param_partition_specs`."""
     return shard_by_specs(params, param_partition_specs(params, shard_tables), mesh, cfg)
+
+
+# ---- putting a split tree back together --------------------------------------
+
+
+def assemble_leaf(name: str, spec: tuple, parts: Sequence[torch.Tensor],
+                  heads: Optional[tuple]) -> torch.Tensor:
+    """The whole tensor from the model ranks' parts (rank order) of a leaf
+    split under `spec`: the inverse of `_local_leaf`. A fused wqkv (and its
+    bias) comes back as [q heads | k heads | v heads] from each rank's
+    sections, a kv head shared by several ranks taken once; w13 as [w1 | w3]
+    from each rank's halves; any other leaf is the parts in rank order."""
+    axis = spec.index(MODEL_AXIS)
+    n = len(parts)
+    if name in ("wqkv", "wqkv_bias"):
+        n_head, n_kv, hd = heads
+        qs, kvs = [], {}
+        for m, t in enumerate(parts):
+            q0, q1, kv0, kv1 = head_range(n_head, n_kv, n, m)
+            q, k, v = torch.split(t, [(q1 - q0) * hd, (kv1 - kv0) * hd, (kv1 - kv0) * hd], axis)
+            qs.append(q)
+            kvs.setdefault((kv0, kv1), (k, v))
+        order = sorted(kvs)
+        return torch.cat(qs + [kvs[r][0] for r in order] + [kvs[r][1] for r in order], axis)
+    if name == "w13":
+        halves = [torch.chunk(t, 2, axis) for t in parts]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves], axis)
+    return torch.cat(list(parts), axis)
+
+
+def _copy_dicts(tree):
+    return {k: _copy_dicts(v) for k, v in tree.items()} if isinstance(tree, dict) else tree
+
+
+def unshard_params(local: dict, mesh: Mesh, cfg, shard_tables: bool = False) -> dict:
+    """The whole DualAR tree from this rank's part under
+    `param_partition_specs` (the exact inverse of `shard_params`), gathered
+    over the model axis with the bit-exact `gather`: every rank receives the
+    same whole tree. A collective: every rank of the mesh calls it. Any tree
+    shaped as the parameters (AdamW's moments) puts back together the same
+    way."""
+    specs = param_partition_specs(local, shard_tables)
+    heads = _trunk_heads(cfg)
+    split = []  # (path, name, spec, trunk) of every split leaf, gathered in one collective
+
+    def find(tree, spec, path, trunk):
+        if isinstance(spec, dict):
+            for k in spec:
+                find(tree[k], spec[k], path + (k,), trunk)
+        elif mesh.n_model > 1 and MODEL_AXIS in spec:
+            split.append((path, spec, trunk, tree))
+
+    for k, s in specs.items():
+        find(local[k], s, (k,), k)
+    out = _copy_dicts(local)
+    if not split:
+        return out
+    gathered = gather(mesh.model_group, mesh.n_model, mesh.model,
+                      [t[None] for *_, t in split], 0)
+    for (path, spec, trunk, _), parts in zip(split, gathered):
+        node = out
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = assemble_leaf(path[-1], spec, list(parts), heads.get(trunk))
+    return out

@@ -17,10 +17,11 @@ import numpy as np
 IGNORE_INDEX = -100
 
 
-def load_splits(path: str, test_size: int = 10_000):
+def load_splits(path: str, test_size: int = 10_000, seed: Optional[int] = None):
     """(train, test) splits of an HF `datasets` directory (`datasets` is
     imported here, as only this function needs it). test_size is clamped so
-    small datasets still split."""
+    small datasets still split. The random splits draw fresh entropy, or
+    from `seed` (which the processes of one run share)."""
     from datasets import Dataset, load_from_disk
 
     dataset = load_from_disk(path)
@@ -29,17 +30,17 @@ def load_splits(path: str, test_size: int = 10_000):
         return min(test_size, max(1, len(ds) // 10))
 
     if isinstance(dataset, Dataset):
-        dataset = dataset.train_test_split(test_size=clamp(dataset))
+        dataset = dataset.train_test_split(test_size=clamp(dataset), seed=seed)
     splits = list(dataset.keys())
     if "full" in splits:
         ds = dataset["full"]
-        split = ds.shuffle().train_test_split(test_size=clamp(ds))
+        split = ds.shuffle(seed=seed).train_test_split(test_size=clamp(ds), seed=seed)
         return split["train"], split["test"]
     if "val" in splits:
         return dataset["train"].shuffle(42), dataset["val"]
     if "test" in splits:
         return dataset["train"].shuffle(42), dataset["test"]
-    split = dataset["train"].train_test_split(test_size=clamp(dataset["train"]))
+    split = dataset["train"].train_test_split(test_size=clamp(dataset["train"]), seed=seed)
     return split["train"], split["test"]
 
 

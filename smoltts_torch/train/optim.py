@@ -11,16 +11,24 @@ mu_dtype=f32))`), not torch.optim.AdamW's:
 - update k (counted from 0) uses lr_schedule(k);
 - biases and norm weights are not decayed; embedding tables are (the
   reference's exemption pattern never matches their names).
+
+On a mesh (parallel/mesh.py) the optimizer holds this rank's leaves. The
+gradients come in summed over the data axis; the global norm sums a split
+leaf's squares over the model axis and counts a replicated leaf once, so
+every rank clips by the same norm, and the elementwise update runs on the
+local leaves unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from smoltts_torch.config import TrainingConfig
+from smoltts_torch.parallel.collectives import sum_model
+from smoltts_torch.parallel.mesh import MODEL_AXIS, param_partition_specs
 
 _NO_DECAY_LEAVES = {
     "attention_norm",
@@ -50,6 +58,30 @@ def tree_leaves(tree) -> List:
     return [tree]
 
 
+def tree_unflatten(template, leaves: Sequence):
+    """The tree shaped as `template` with `leaves` in `tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def split_leaves(params, mesh=None, shard_tables: bool = False) -> Optional[List[bool]]:
+    """Per leaf (`tree_leaves` order), whether this rank holds a share of it
+    split over the mesh's model axis; None without a model axis."""
+    if mesh is None or mesh.n_model == 1:
+        return None
+    return [MODEL_AXIS in spec
+            for spec in tree_leaves(param_partition_specs(params, shard_tables))]
+
+
 def lr_schedule(config: TrainingConfig) -> Callable[[int], np.float32]:
     """Linear lr_start -> learning_rate over the warmup, then constant; in
     f32, as JAX evaluates it."""
@@ -64,13 +96,28 @@ def lr_schedule(config: TrainingConfig) -> Callable[[int], np.float32]:
     return fn
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: each leaf's sum of squares in its dtype, summed in
-    leaf order."""
+def _sum_squares(grads):
     total = None
     for g in grads:
         s = torch.sum(g * g)
         total = s if total is None else total + s
+    return total
+
+
+def global_norm(grads: Sequence[torch.Tensor], mesh=None,
+                split: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """optax.global_norm: each leaf's sum of squares in its dtype, summed in
+    leaf order. On a `mesh`, `split` flags the leaves this rank holds a share
+    of (`split_leaves`): their squares are summed over the model axis, each
+    replicated leaf counted once."""
+    grads = list(grads)
+    if split is None:
+        return torch.sqrt(_sum_squares(grads))
+    mine = _sum_squares([g for g, s in zip(grads, split, strict=True) if s])
+    total = _sum_squares([g for g, s in zip(grads, split) if not s])
+    if mine is not None:
+        mine = sum_model(mine, mesh)
+        total = mine if total is None else mine + total
     return torch.sqrt(total)
 
 
@@ -78,18 +125,30 @@ class AdamW(torch.optim.Optimizer):
     """One param group; per parameter: `mu` (f32), `nu` and its `decay`
     flag; the update count is `param_groups[0]["count"]`. `step(grads)`
     takes the gradients in parameter order (or reads `.grad`) and returns
-    their global norm before clipping."""
+    their global norm before clipping. On a `mesh`, the parameters are a
+    rank's leaves and `split` flags those split over the model axis."""
 
     def __init__(self, params: Sequence[torch.Tensor], decay: Sequence[bool],
-                 config: TrainingConfig):
+                 config: TrainingConfig, mesh=None, split: Optional[Sequence[bool]] = None):
         params = list(params)
         super().__init__(params, dict(
             lr=config.learning_rate, betas=tuple(config.betas), eps=config.eps,
             weight_decay=config.weight_decay, gradient_clip=config.gradient_clip, count=0))
         self.schedule = lr_schedule(config)
+        self.mesh, self.split = mesh, None if split is None else list(split)
         for p, d in zip(params, decay, strict=True):
             self.state[p] = {"mu": torch.zeros_like(p, dtype=torch.float32),
                              "nu": torch.zeros_like(p), "decay": bool(d)}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch's loader, then the moments as saved: torch casts a
+        floating-point state to its parameter's dtype, which would round the
+        f32 first moment of a bf16 parameter (optax keeps it f32)."""
+        super().load_state_dict(state_dict)
+        for i, p in enumerate(self.param_groups[0]["params"]):
+            saved = state_dict["state"][i]
+            for k in ("mu", "nu"):
+                self.state[p][k] = saved[k].to(device=p.device, copy=True)
 
     @torch.no_grad()
     def step(self, grads=None) -> torch.Tensor:
@@ -98,7 +157,7 @@ class AdamW(torch.optim.Optimizer):
         grads = [p.grad for p in params] if grads is None else list(grads)
         b1, b2 = group["betas"]
         eps, wd, clip = group["eps"], group["weight_decay"], group["gradient_clip"]
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, self.mesh, self.split)
         if clip > 0:
             trigger = g_norm < clip
             grads = [torch.where(trigger, g, (g / g_norm.to(g.dtype)) * clip) for g in grads]
@@ -123,11 +182,15 @@ class AdamW(torch.optim.Optimizer):
         return g_norm
 
 
-def create_optimizer(config: TrainingConfig, params) -> AdamW:
+def create_optimizer(config: TrainingConfig, params, mesh=None,
+                     shard_tables: bool = False) -> AdamW:
     """AdamW over the tree's leaves (JAX's leaf order) with the decay
-    partition of `decay_mask`. The leaves are made to require grad."""
+    partition of `decay_mask`. The leaves are made to require grad. On a
+    `mesh`, `params` is this rank's part under `param_partition_specs(...,
+    shard_tables)`."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    return AdamW(leaves, tree_leaves(decay_mask(params)), config)
+    return AdamW(leaves, tree_leaves(decay_mask(params)), config, mesh,
+                 split_leaves(params, mesh, shard_tables))
 

@@ -2,7 +2,8 @@
 (smoltts_torch/parallel/mesh.py): `param_partition_specs` equals the JAX
 package's leaf for leaf; the 150M tree's specs partition every large tensor
 (the counterpart of tests/test_tp_scale.py); `shard_params` at every
-coordinate of a 2 x 2 mesh puts back together into the tree, bit for bit;
+coordinate of a 2 x 2 mesh puts back together into the tree, bit for bit
+(through the package's `assemble_leaf`);
 and on four gloo ranks (device="cpu"), `make_mesh` / `make_multihost_mesh`
 refuse what JAX refuses, and the collectives give every rank the same bits."""
 
@@ -24,6 +25,7 @@ from smoltts_torch.parallel.launch import run_ranks
 from smoltts_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
+    assemble_leaf,
     head_range,
     param_partition_specs,
     shard_params,
@@ -109,29 +111,16 @@ def _tree(kind):
 
 
 def _assemble(name, spec, parts, heads):
-    """Put the model ranks' parts of one tensor back together: head order
-    for wqkv (each kv head once), half order for w13, rank order else."""
-    axis = spec.index(MODEL_AXIS)
-    n = len(parts)
+    """The package's assemble_leaf, each kv head that several ranks share
+    checked to be the same bits on every holder first."""
     if name in ("wqkv", "wqkv_bias"):
         n_head, n_kv, hd = heads
-        sections = []
+        axis, seen = spec.index(MODEL_AXIS), {}
         for m, t in enumerate(parts):
-            q0, q1, kv0, kv1 = head_range(n_head, n_kv, n, m)
-            q, k, v = torch.split(t, [(q1 - q0) * hd, (kv1 - kv0) * hd, (kv1 - kv0) * hd], axis)
-            sections.append(((kv0, kv1), q, k, v))
-        kvs = {}
-        for rng, _, k, v in sections:
-            if rng in kvs:  # a shared head: every holder has the same bits
-                assert torch.equal(kvs[rng][0], k) and torch.equal(kvs[rng][1], v)
-            kvs[rng] = (k, v)
-        order = sorted(kvs)
-        return torch.cat([s[1] for s in sections] + [kvs[r][0] for r in order]
-                         + [kvs[r][1] for r in order], axis)
-    if name == "w13":
-        halves = [torch.chunk(t, 2, axis) for t in parts]
-        return torch.cat([h[0] for h in halves] + [h[1] for h in halves], axis)
-    return torch.cat(parts, axis)
+            q0, q1, kv0, kv1 = head_range(n_head, n_kv, len(parts), m)
+            kv = t.narrow(axis, (q1 - q0) * hd, 2 * (kv1 - kv0) * hd)
+            assert torch.equal(seen.setdefault((kv0, kv1), kv), kv)
+    return assemble_leaf(name, spec, parts, heads)
 
 
 @pytest.mark.parametrize("kind", ["plain", "fused-int8", "gqa-shared"])

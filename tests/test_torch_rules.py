@@ -103,13 +103,16 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from smoltts_torch.models.dual_ar import init_params
     from smoltts_torch.ops.quant_gate import run_quant_gates, run_quant_gates_cached
     from smoltts_torch.parallel.launch import run_ranks
-    from smoltts_torch.parallel.mesh import init_distributed
+    from smoltts_torch.parallel.mesh import Mesh, init_distributed
     from smoltts_torch.server.app import load_core
     from smoltts_torch.server.settings import ServerSettings
     from smoltts_torch.tokenizer import TokenConfig
+    from smoltts_torch.train.checkpoint import CheckpointManager
     from smoltts_torch.train.main import main as train_main
-    from smoltts_torch.train.trainer import train_loop
+    from smoltts_torch.train.trainer import TrainState, train_loop
 
+    saver = CheckpointManager(str(tmp_path / "ckpt"), run_name="run")  # one process: no device
+    saver.mesh = Mesh(1, 2)  # ...and then a rank of a mesh, whose device None means CUDA
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setitem(sys.modules, "huggingface_hub", None)  # never a download here
     cfg, mcfg = tiny_debug_config(), MimiConfig()
@@ -148,12 +151,20 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         # the parallel layer: no process group is joined, no rank is spawned
         lambda: init_distributed("127.0.0.1:1", 1, 0),
         lambda: run_ranks(print, 2),
+        lambda: train_main(["--config", str(tmp_path / "missing.json"), "--multihost"]),
+        lambda: train_main(["--config", str(tmp_path / "missing.json"), "--coordinator",
+                            "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"]),
+        # checkpoints on a mesh: no collective, no file
+        lambda: CheckpointManager(str(tmp_path / "mesh_ckpt"), mesh=Mesh(1, 2)),
+        lambda: saver.save(TrainState({}, None, 5)),
+        lambda: CheckpointManager.load(str(tmp_path / "missing"), TrainingConfig(),
+                                       mesh=Mesh(1, 2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not torch.distributed.is_initialized()
-    for name in ("gates.json", "out", "init", "codes"):
+    for name in ("gates.json", "out", "init", "codes", "mesh_ckpt", "ckpt/run/step_000005"):
         assert not (tmp_path / name).exists(), name
     # an explicit CPU device is honoured
     assert init_decode_state(cfg, 1, 16, device="cpu").k.device.type == "cpu"

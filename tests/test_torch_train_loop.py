@@ -284,13 +284,24 @@ def test_main_trains_checkpoints_and_auto_resumes(tmp_path, capsys):
     state = main(["--config", str(tmp_path / "run.json"), "--max-steps", "2", "--device", "cpu"])
     assert f"auto-resume: restarting from {latest}" in capsys.readouterr().out
     assert state.step == 6
-    for bad in ([], ["--multihost"], ["--coordinator", "localhost:1"]):
-        if not bad:
-            (tmp_path / "mesh.json").write_text(json.dumps(dict(run, mesh_model_axis=2)))
-        args = ["--config", str(tmp_path / ("mesh.json" if not bad else "run.json")),
-                "--device", "cpu"] + bad
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            main(args)
+    # main refuses what JAX refuses: a mesh whose product is not the world
+    # (one process here: JAX's make_mesh over one device), and a batch that
+    # does not split over the data ranks
+    from smoltts_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from smoltts_torch.parallel.mesh import Mesh
+    from smoltts_torch.train.main import rank_batch_size
+
+    for axes in ((-1, 2), (2, 1), (2, 2)):
+        with pytest.raises(AssertionError) as jax_err:
+            jax_make_mesh(*axes, devices=jax.devices()[:1])
+        (tmp_path / "mesh.json").write_text(json.dumps(dict(run, mesh_data_axis=axes[0],
+                                                            mesh_model_axis=axes[1])))
+        with pytest.raises(ValueError) as err:
+            main(["--config", str(tmp_path / "mesh.json"), "--device", "cpu"])
+        assert str(err.value) == str(jax_err.value), axes
+    assert rank_batch_size(4, Mesh(2, 1)) == 2 and rank_batch_size(3, None) == 3
+    with pytest.raises(ValueError, match="batch_size 3 does not split over 2 data ranks"):
+        rank_batch_size(3, Mesh(2, 2, 1, 0))
 
 
 def test_convert_round_trip_and_jax_parity(tmp_path):

@@ -14,14 +14,25 @@ import torch
 
 from smoltts_torch.codec.config import MimiConfig
 from smoltts_torch.codec.mimi import decode_stream_init
-from smoltts_torch.config import ModelType, tiny_debug_config
-from smoltts_torch.interop import params_from_jax_numpy
+from smoltts_torch.config import ModelType, TrainingConfig, tiny_debug_config
+from smoltts_torch.interop import params_from_jax_numpy, tree_map
 from smoltts_torch.lm.decode import decode_frame, init_decode_state, prefill
 from smoltts_torch.lm.pipeline import make_prefill_step, make_stream_step
 from smoltts_torch.lm.samplers import GenerationSettings
-from smoltts_torch.parallel.mesh import make_mesh
+from smoltts_torch.models.dual_ar import forward_train, init_params
+from smoltts_torch.parallel.mesh import (
+    DATA_AXIS,
+    SEQUENCE_SHARDING,
+    batch_sharding,
+    make_global_batch,
+    make_mesh,
+    shard_params,
+    unshard_params,
+)
 from smoltts_torch.parallel.serving import shard_serving
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from smoltts_torch.train.optim import global_norm, split_leaves, tree_leaves, tree_unflatten
+from smoltts_torch.train.trainer import init_train_state, make_train_step
 
 CB = 32
 # tests/test_parallel_serving.py::_setup's codec
@@ -192,6 +203,7 @@ def mesh_rank(rank):
     parent to hold every rank to the same bits."""
     import os
 
+    from smoltts_torch.parallel.collectives import gather_model
     from smoltts_torch.parallel.mesh import make_multihost_mesh
 
     refusals = {}
@@ -220,10 +232,168 @@ def mesh_rank(rank):
     data_gathered = mesh.data_gather(parts, 0)
     chunk = mesh.data_gather([torch.randn((2, 3, 4), generator=g)], 1)[0]
     summed = mesh.model_sum(torch.full((4,), float(rank + 1)) / 3)
-    logits = mesh.model_gather(torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * m, -1)
+    logits = gather_model(torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * m, mesh, -1)
     plan = mesh.broadcast_object({"rank": rank, "arr": np.arange(rank + 3)} if rank == 0 else None)
     _no_jax()
     as_np = lambda t: t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
     return dict(coords=(d, m), refusals=refusals, parts=[None if p is None else as_np(p) for p in parts],
                 data_gathered=[None if t is None else as_np(t) for t in data_gathered],
                 chunk=chunk.numpy(), summed=summed.numpy(), logits=logits.numpy(), plan=plan)
+
+
+# ---- training on a mesh (tests/test_torch_parallel_train.py) ---------------
+
+
+def _np(t):
+    """A tensor as numpy; bf16 widened to f32 exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _np_tree(tree):
+    return tree_map(_np, tree)
+
+
+def _case_setup(spec, case):
+    """The case's config (its own or the spec's), whole f32 tree and
+    TrainingConfig."""
+    cfg = tiny_debug_config(**case.get("cfg", spec["cfg"]))
+    params = params_from_jax_numpy(case.get("weights", spec["weights"]))
+    return cfg, params, TrainingConfig(**case.get("tc", {}))
+
+
+def _steps(cfg, tc, state, tx, case, mesh=None):
+    """Run the case's steps; (state, metrics per step)."""
+    A = tc.accumulate_steps
+    step = make_train_step(cfg, tc, tx, accumulate_steps=A, mesh=mesh,
+                           activation_sharding=SEQUENCE_SHARDING if case.get("sp") else None)
+    metrics = []
+    for batch, seed in zip(case["batches"], case["seeds"]):
+        if mesh is not None:
+            batch = make_global_batch(batch, mesh, batch_sharding(mesh, A).index(DATA_AXIS))
+        state, m = step(state, batch, seed)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def _moments_tree(tx, params):
+    ps = tx.param_groups[0]["params"]
+    return {k: tree_unflatten(params, [tx.state[p][k] for p in ps]) for k in ("mu", "nu")}
+
+
+def one_process_train(spec, case):
+    """The case's steps in this process on the whole tree: metrics per
+    step, the updated parameters and AdamW's moments (numpy)."""
+    cfg, params, tc = _case_setup(spec, case)
+    state, tx = init_train_state(params, tc)
+    state, metrics = _steps(cfg, tc, state, tx, case)
+    return dict(metrics=metrics, params=_np_tree(state.params),
+                moments=_np_tree(_moments_tree(tx, state.params)))
+
+
+def _mesh_train(cfg, params, tc, case):
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    tables = case.get("shard_tables", False)
+    state, tx = init_train_state(shard_params(params, mesh, tables, cfg=cfg), tc, mesh=mesh,
+                                 shard_tables=tables)
+    state, metrics = _steps(cfg, tc, state, tx, case, mesh)
+    moments = {k: unshard_params(t, mesh, cfg, tables)
+               for k, t in _moments_tree(tx, state.params).items()}
+    whole = unshard_params(state.params, mesh, cfg, tables)
+    lead = (mesh.data, mesh.model) == (0, 0)
+    return dict(coords=(mesh.data, mesh.model), metrics=metrics,
+                local_wqkv=tuple(state.params["layers"]["wqkv"].shape),
+                local_fast_wqkv=tuple(state.params["fast_layers"]["wqkv"].shape),
+                params=_np_tree(whole) if lead else None,
+                moments=_np_tree(moments) if lead else None)
+
+
+def _mesh_forward(cfg, params, case):
+    """forward_train on this rank's rows (a replicated or split tree, with
+    or without sequence parallelism): the rank's logits."""
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    if case.get("split"):
+        params = shard_params(params, mesh, cfg=cfg)
+    tokens = make_global_batch({"tokens": case["tokens"]}, mesh)["tokens"]
+    with torch.no_grad():
+        out = forward_train(params, cfg, tokens, mesh=mesh,
+                            activation_sharding=SEQUENCE_SHARDING if case.get("sp") else None)
+    return dict(coords=(mesh.data, mesh.model), token_logits=_np(out.token_logits),
+                codebook_logits=_np(out.codebook_logits))
+
+
+def _mesh_norm(cfg, params, case):
+    """global_norm of a gradient-shaped tree split as the parameters."""
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    g = torch.Generator().manual_seed(case["seed"])
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=g) * 1e-2, params)
+    tables = case.get("shard_tables", False)
+    local = shard_params(grads, mesh, tables, cfg=cfg)
+    norm = global_norm(tree_leaves(local), mesh, split_leaves(local, mesh, tables))
+    return dict(norm=float(norm), grads=_np_tree(grads))
+
+
+def _mesh_unshard(cfg, params, case):
+    """shard_params then unshard_params, for several trees: the names of the
+    leaves that did not come back bit for bit (dtype included)."""
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    bad = {}
+    for label, (cfg_kw, dtype, tables) in case["trees"].items():
+        c = tiny_debug_config(**cfg_kw)
+        whole = init_params(c, torch.Generator().manual_seed(3), dtype=getattr(torch, dtype),
+                            device="cpu")
+        if "wqkv_bias" in whole["layers"]:
+            bias = whole["layers"]["wqkv_bias"]
+            whole["layers"]["wqkv_bias"] = torch.randn(
+                bias.shape, generator=torch.Generator().manual_seed(4)).to(bias.dtype)
+        local = shard_params(whole, mesh, tables, cfg=c)
+        back = unshard_params(local, mesh, c, tables)
+        smaller = sum(a.numel() < b.numel() for a, b in zip(tree_leaves(local),
+                                                             tree_leaves(whole)))
+        bad[label] = (smaller, [i for i, (a, b) in enumerate(zip(tree_leaves(back),
+                                                                   tree_leaves(whole)))
+                                if a.dtype != b.dtype or not torch.equal(a, b)])
+    return bad
+
+
+def train_rank(rank, spec_path):
+    """The cases of a pickled spec on this rank, in order: "train" (steps
+    on a mesh), "forward", "norm", "unshard". Each builds its own mesh over
+    every rank."""
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    out = {}
+    for name, case in spec["cases"].items():
+        cfg, params, tc = _case_setup(spec, case)
+        kind = case["kind"]
+        if kind == "train":
+            out[name] = _mesh_train(cfg, params, tc, case)
+        elif kind == "forward":
+            out[name] = _mesh_forward(cfg, params, case)
+        elif kind == "norm":
+            out[name] = _mesh_norm(cfg, params, case)
+        else:
+            out[name] = _mesh_unshard(cfg, params, case)
+    _no_jax()
+    return out
+
+
+def cli_rank(rank, runs):
+    """train.main.main on this rank for each (argv, expect_error) in
+    `runs`: the metrics it logged (rank 0), or the error it raised."""
+    from smoltts_torch.train import main as train_main
+
+    out = []
+    for argv, expect_error in runs:
+        logged = []
+        train_main.default_log_fn = lambda use_wandb: (lambda step, m: logged.append((step, m)))
+        try:
+            state = train_main.main(argv)
+        except ValueError as e:
+            if not expect_error:
+                raise
+            out.append(("error", str(e)))
+            continue
+        out.append(("ok", state.step, logged if rank == 0 else None))
+    _no_jax()
+    return out
