@@ -13,9 +13,13 @@ Phases:
      lim 256/1024/2048, kv8 and same-dtype histories, bf16 and f32, ragged
      B=1 and 7, edge rows, the 70M heads, hd 128 with G=8, the contiguous
      form; a tail of 2048 columns, a group of 12, hd 32 and 96, f32 over a
-     bf16 cache, each timed; device and wall time per call, warm and cold
-     (rotating over 10 layer-sized caches), at lim 256 and 2048, beside
-     SDPA; make_device_generator at B=1 for 1100 frames with a tail of 1152
+     bf16 cache, a tail above MAX_TUNED_W, each timed (the split route's
+     cases beside the plain version, SDPA over the cast cache and the bound;
+     at the blocking generator's shape it must beat SDPA and the plain
+     version); device and wall time per call, warm and cold (rotating over
+     10 layer-sized caches), at lim 256 and 2048, beside SDPA; the main
+     path takes the tuned route only (phase 5);
+     make_device_generator at B=1 for 1100 frames with a tail of 1152
   3  fast micro-loop (K1) vs its plain version at 150M widths: B=64, the
      ragged row counts 1, 7, 65, 130, and 8192 sampled draws; 70M widths at
      B=64; identical codes
@@ -37,8 +41,10 @@ Phases:
      (bf16 model.safetensors + config.json, tokenizer.json, a full-size
      mimi.safetensors in the kyutai/HF key schema): loaded trees equal the
      written ones; int8+kv8, sampled with the audio window: __call__, stream
-     and create_speaker with launch counts; greedy f32 int8: kernel path ==
-     all-plain path for generate_blocking, __call__ and stream; the chunk
+     and create_speaker with launch counts; greedy f32 int8: the blocking
+     __call__'s frames/s at B=1 (K2's split route in every slow layer),
+     kernel path == all-plain path for generate_blocking, __call__ and
+     stream; the chunk
      step at B=64, chunk 8, bucket 256 beside phase 5's streaming rate, and
      chunk-step codes == stream-step codes greedy at B=4 in f32
   8  the continuous-batching engine (DecodeEngine, EngineLoop): greedy f32
@@ -125,6 +131,7 @@ phase exits non-zero without that last line. No JAX is imported.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import itertools
 import json
@@ -169,11 +176,24 @@ SMOLLM2_135M = dict(hidden_size=576, num_hidden_layers=30, num_attention_heads=9
 STREAM_SNR_GATE = 30.0
 K1_KERNELS = re.compile(r"\b(gemm_i8|fast_attn|fast_sample|init_h)\b")  # csrc/fast_loop.cu
 K3_KERNEL = re.compile(r"\bsample_tokens_kernel\b")  # csrc/sampling.cu
-PORT_KERNELS = re.compile(r"\b(decode_attn_kernel|sample_tokens_kernel)\b")  # K2, K3
+PORT_KERNELS = re.compile(
+    r"\b(decode_attn_kernel|decode_attn_split_kernel|sample_tokens_kernel)\b")  # K2, K3
+BLOCKING_FRAMES = 128  # frames of the timed blocking __call__ at B=1 (phase 7)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_counts() -> None:
+    """Every launch count to 0: ops.LAUNCHES and K2's launches by route (a
+    tree from before K2's split route has no per-route counts)."""
+    from smoltts_torch import ops
+    from smoltts_torch.ops import attention as A
+
+    ops.reset_launch_counts()
+    for k in getattr(A, "ROUTE_LAUNCHES", {}):
+        A.ROUTE_LAUNCHES[k] = 0
 
 
 def check(cond, what) -> None:
@@ -1241,17 +1261,18 @@ class Smoke:
         return args, ref, (flushed, pos, tail_pos)
 
     def _k2_sdpa(self, a):
-        """SDPA over the dequantized, concatenated cache of one call (the
-        library yardstick's inputs, built once)."""
+        """SDPA over the dequantized (or cast: a bf16 cache under f32 q),
+        concatenated cache of one call (the library yardstick's inputs, built
+        once)."""
         torch = self.torch
-        H, KV = a["q"].shape[1], a["k_hist"].shape[1]
+        H, KV, dt = a["q"].shape[1], a["k_hist"].shape[1], a["q"].dtype
         if "k_scale" in a:
-            kd = (a["k_hist"].float() * a["k_scale"][..., None]).to(a["q"].dtype)
-            vd = (a["v_hist"].float() * a["v_scale"][..., None]).to(a["q"].dtype)
+            kd = (a["k_hist"].float() * a["k_scale"][..., None]).to(dt)
+            vd = (a["v_hist"].float() * a["v_scale"][..., None]).to(dt)
         else:
-            kd, vd = a["k_hist"], a["v_hist"]
-        kcat = torch.cat([kd, a["k_tail"]], 2).repeat_interleave(H // KV, 1)
-        vcat = torch.cat([vd, a["v_tail"]], 2).repeat_interleave(H // KV, 1)
+            kd, vd = a["k_hist"].to(dt), a["v_hist"].to(dt)
+        kcat = torch.cat([kd, a["k_tail"].to(dt)], 2).repeat_interleave(H // KV, 1)
+        vcat = torch.cat([vd, a["v_tail"].to(dt)], 2).repeat_interleave(H // KV, 1)
         lim = kd.shape[2]
         fl, tp, posd = a["flushed"], a["tail_pos"], a["pos"]
         mh = torch.arange(lim, device=self.dev)[None] < fl[:, None]
@@ -1301,18 +1322,23 @@ class Smoke:
              B, H, KV, hd, 2048, 2048, 128, kv8, f32, bf16)
             for kv8 in (False, True) for B, H, KV, hd in ((1, 12, 4, 64), (7, 12, 3, 128))]
         worst = {bf16: 0.0, f32: 0.0}
+        split_worst = 0.0  # the split route's cases, here and in _k2_wide_shapes
         for i, (label, B, H, KV, hd, S, lim, W, kv8, dtype, store) in enumerate(cases):
-            (args,), ref, _ = self._k2_case(B, H, KV, hd, S, lim, W, kv8, dtype, seed=20 + i,
-                                            store=store)
+            (args,), ref, idx = self._k2_case(B, H, KV, hd, S, lim, W, kv8, dtype, seed=20 + i,
+                                              store=store)
             got = A.decode_attention_tailed(**args)
             want = A.decode_attention_tailed_plain(**(args if store else ref))
             err = (got.float() - want).abs().max().item()
             gate = bf16 if store else dtype
             worst[gate] = max(worst[gate], err)
             extra = f", {int(((got - want).abs() > 1e-5).sum())} of {got.numel()} above 1e-5" if store else ""
-            log(f"[2 K2] {label}: B={B} H={H}/{KV} hd={hd} lim={lim} W={W}: max_abs_err {err:.3e} "
-                f"(gate {K2_GATE if gate == bf16 else K2_F32_GATE}){extra}")
-        self._k2_wide_shapes(worst)
+            route = A.kernel_plan(**args).route
+            log(f"[2 K2] {label}: B={B} H={H}/{KV} hd={hd} lim={lim} W={W}, {route} route: "
+                f"max_abs_err {err:.3e} (gate {K2_GATE if gate == bf16 else K2_F32_GATE}){extra}")
+            if route == "split":
+                split_worst = max(split_worst, err)
+                self._k2_times(label, args, *idx)
+        self._k2_wide_shapes(worst, split_worst)
         for dtype in (bf16, f32):  # contiguous form (W = 0, flushed = pos + 1)
             g = torch.Generator(device=dev).manual_seed(5)
             kc, vc = (torch.randn((64, 4, 256, 64), generator=g, device=dev).to(dtype) for _ in "kv")
@@ -1367,15 +1393,48 @@ class Smoke:
                     max_abs_err=max(worst.values()), **rec)
         self._long_device_generator()
 
-    def _k2_wide_shapes(self, worst):
+    def _k2_times(self, label, a, flushed, pos, tail_pos):
+        """Device ms per call of the kernel, its plain version and SDPA over
+        the cast cache, all on one input, beside the call's bound: each byte
+        the call needs read once (q, the valid history rows with their kv8
+        scales, the valid tail rows, the indices) and the output written
+        once; 4 operations per (position, query head, head dim) at the
+        compute dtype's peak (f32 outside the tensor cores, or bf16)."""
+        import torch.nn.functional as F
+
+        from smoltts_torch.ops import attention as A
+
+        B, H, hd = a["q"].shape
+        KV, lim = a["k_hist"].shape[1], a["k_hist"].shape[2]
+        ok = (tail_pos >= flushed[:, None]) & (tail_pos <= pos[:, None]) & (tail_pos >= 0)
+        n_hist, n_tail = int(np.clip(np.minimum(flushed, lim), 0, None).sum()), int(ok.sum())
+        eq, eh, et = (a[k].element_size() for k in ("q", "k_hist", "k_tail"))
+        nbytes = (2 * B * H * hd * eq + n_hist * KV * 2 * (hd * eh + (4 if "k_scale" in a else 0))
+                  + n_tail * KV * 2 * hd * et + tail_pos.size * 4 + 2 * B * 4)
+        peak = F32_FLOPS if a["q"].dtype == self.torch.float32 else BF16_FLOPS
+        bms, by = bound(nbytes, 4 * H * hd * (n_hist + n_tail), peak)
+        ms = device_ms(lambda: A.decode_attention_tailed(**a), iters=20)
+        plain_ms = device_ms(lambda: A.decode_attention_tailed_plain(**a), iters=5)
+        sd = self._k2_sdpa(a)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(sd[0], sd[1], sd[2],
+                                                                  attn_mask=sd[3]), iters=20)
+        log(f"[2 K2] {label}: {n_hist} history rows + {n_tail} tail columns valid, device ms per "
+            f"call {ms}, plain {plain_ms}, SDPA over the cast cache {lib_ms}; bound {bms} ({by}, "
+            f"{nbytes / 1e6:.3f} MB); {ms / bms:.1f}x the bound")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    def _k2_wide_shapes(self, worst, split_worst):
         """Shapes past the tuned kernel's first limits, all served in-kernel:
         a tail of 2048 columns (valid columns on both sides of 1024, the
         old limit), a group of 12 over one kv head (two group tiles),
-        head_dim 32 (a tuned template) and 96 (the generic kernel), in bf16
+        head_dim 32 (a tuned template) and 96 (the split route), in bf16
         and f32 over kv8 and same-dtype histories; then f32 compute over a
-        bf16 cache (the generic kernel's rounding mode) at these shapes and
-        at the blocking generator's. Each against the plain version, with
-        device ms per call beside the plain version's."""
+        bf16 cache (the split route's rounding mode) at these shapes and at
+        the blocking generator's; then a tail above MAX_TUNED_W columns (the
+        split route, masked column by column). Each against the plain
+        version; the split route's cases timed beside the plain version, SDPA
+        and the bound, and at the blocking generator's shape it must beat
+        both."""
         from smoltts_torch.ops import attention as A
 
         torch = self.torch
@@ -1393,6 +1452,9 @@ class Smoke:
                                      ("B=1 lim 2048 (blocking generator)", 1, 12, 4, 64, 2048, 2048, 128),
                                      ("B=64 lim 256", 64, 12, 4, 64, 1024, 256, 128))
                   for kv8 in (False, True)]
+        cases += [("tail above MAX_TUNED_W (masked)", (1, 4, 1, 64, 66048, 66048, 33024), dtype,
+                   kv8, None) for dtype in (bf16, f32) for kv8 in (True, False)]
+        split_rec = None
         for i, (label, (B, H, KV, hd, S, lim, W), dtype, kv8, store) in enumerate(cases):
             (args,), ref, (fl, ps, tp) = self._k2_case(B, H, KV, hd, S, lim, W, kv8, dtype,
                                                        seed=200 + i, store=store)
@@ -1407,12 +1469,28 @@ class Smoke:
             err = (got.float() - want).abs().max().item()
             gate = bf16 if store else dtype
             worst[gate] = max(worst[gate], err)
-            ms = device_ms(lambda: A.decode_attention_tailed(**args), iters=20)
-            plain_ms = device_ms(lambda: A.decode_attention_tailed_plain(**args), iters=5)
-            log(f"[2 K2] {label}, {str(dtype)[6:]} {'kv8' if kv8 else 'same-dtype'} history: "
-                f"B={B} H={H}/{KV} hd={hd} lim={lim} W={W}, {A.kernel_plan(**args).route} kernel: "
-                f"max_abs_err {err:.3e} (gate {K2_GATE if gate == bf16 else K2_F32_GATE}){sides}; "
-                f"device ms per call {ms}, plain {plain_ms}")
+            route = A.kernel_plan(**args).route
+            hist = "kv8" if kv8 else ("bf16" if store else "same-dtype")
+            name = f"{label}, {str(dtype)[6:]} {hist} history"
+            log(f"[2 K2] {name}: B={B} H={H}/{KV} hd={hd} lim={lim} W={W}, {route} route: "
+                f"max_abs_err {err:.3e} (gate {K2_GATE if gate == bf16 else K2_F32_GATE}){sides}")
+            if route == "tuned":
+                ms = device_ms(lambda: A.decode_attention_tailed(**args), iters=20)
+                plain_ms = device_ms(lambda: A.decode_attention_tailed_plain(**args), iters=5)
+                log(f"[2 K2] {name}: device ms per call {ms}, plain {plain_ms}")
+                continue
+            split_worst = max(split_worst, err)
+            t = self._k2_times(name, args, fl, ps, tp)
+            if "blocking generator" in label:
+                check(t["ms"] < t["library_ms"] and t["ms"] < t["plain_ms"],
+                      f"K2 split route at {name}: {t['ms']} ms not below SDPA {t['library_ms']} "
+                      f"and the plain version {t['plain_ms']}")
+                if not kv8:  # the blocking generator's own cache: bf16, no kv8
+                    split_rec = t
+        check(split_rec is not None, "no split-route case at the blocking generator's shape")
+        self.record("decode_attention_split", source="smoltts_torch/csrc/decode_attention.cu",
+                    replaces="smoltts_tpu/ops/attention.py:53", max_abs_err=split_worst,
+                    **split_rec)
 
     def _long_device_generator(self):
         """make_device_generator at B=1 for 1100 frames with a tail of 1152
@@ -1846,6 +1924,7 @@ class Smoke:
     def phase5_main_path(self):
         from smoltts_torch import ops
         from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.ops import attention as A
 
         torch = self.torch
         cfg, params, mcfg, mimi = self.lm()
@@ -1868,7 +1947,7 @@ class Smoke:
         smi = nvidia_smi()
         firsts, rates = [], []
         for rep in range(REPEATS):  # each repeat drives the path from fresh states
-            ops.reset_launch_counts()
+            reset_counts()
             t_first, total, outs, (state, mstate, gen) = self._run_stream(
                 cfg, params, mcfg, mimi, token_cfg, settings, prompt, lens, n_frames,
                 torch.int8, torch.bfloat16, check_output)
@@ -1880,11 +1959,15 @@ class Smoke:
                 f"frame-steps/s, {B * n_frames / total} stream-frames/s, {rates[-1]} audio-s/s "
                 f"(wall {total} s); launches {counts}")
             check(counts == expect, f"launch counts {counts}, expected {expect}")
+            routes = dict(A.ROUTE_LAUNCHES)
+            check(routes == {"tuned": expect["decode_attention"], "split": 0},
+                  f"K2 launches by route {routes}: the main path takes the tuned route only")
         log(f"[5 main] median of {REPEATS} on {smi}: first audio {float(np.median(firsts))} ms, "
             f"{float(np.median(rates))} audio-s/s")
         self.stream_rate = float(np.median(rates))
         for name in self.kernels:
-            self.kernels[name]["launches"] = counts[name]
+            if name in counts:  # the split route's launches come from phase 7
+                self.kernels[name]["launches"] = counts[name]
         self._breakdown(cfg, params, mcfg, mimi, token_cfg, settings, state, mstate, gen,
                         outs[-1].audio_codes[:, :, None])
 
@@ -2106,6 +2189,7 @@ class Smoke:
         greedy = GenerationSettings(default_temp=0.0, default_fast_temp=0.0, max_new_tokens=16,
                                     audio_only_constraint=True)
         tts = SmolTTS(d, dtype=torch.float32, generation_settings=greedy, quantize="int8")
+        self._blocking_rate(tts, cfg, smi, G)
         text = "Greedy and plain, side by side."
 
         def run():
@@ -2133,6 +2217,64 @@ class Smoke:
             f"{call_err:.3e}, stream {len(kern[2])} chunks max abs diff {stream_err:.3e} (gate 1e-3)")
         check(codes_equal and call_err <= 1e-3 and stream_err <= 1e-3,
               "greedy kernel path and plain path differ")
+
+    def _blocking_rate(self, tts, cfg, smi, G):
+        """SmolTTS.__call__ at B=1 on the f32 int8 tree, greedy, for up to
+        BLOCKING_FRAMES frames: the blocking generator keeps a bf16 KV cache
+        under f32 compute, so every slow layer of every frame after the first
+        runs K2's split route. Frames/s of the whole call (batch mimi_decode
+        included) and of generate_blocking's decode loop, twice; K2's
+        launches by route."""
+        from smoltts_torch import ops
+        from smoltts_torch.ops import attention as A
+
+        torch = self.torch
+        settings = dataclasses.replace(tts.generation_settings, max_new_tokens=BLOCKING_FRAMES)
+        real, metrics = G.generate_blocking, []
+
+        def counting(*a, **k):
+            out = real(*a, **k)
+            metrics.append(out[2])
+            return out
+
+        routes = getattr(A, "ROUTE_LAUNCHES", None)
+        text = "The blocking generator reads this sentence aloud, one frame after another."
+        with mock.patch.object(tts, "generation_settings", settings), \
+                mock.patch.object(G, "generate_blocking", counting):
+            tts(text)  # warm-up
+            for rep in range(2):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pcm = tts(text)
+                wall = time.perf_counter() - t0
+                m, counts = metrics[-1], dict(ops.LAUNCHES)
+                n = m.frames
+                check(pcm.ndim == 1 and bool(np.isfinite(pcm).all()), "blocking __call__ PCM")
+                check(counts["decode_attention"] == cfg.n_layer * (n - 1),
+                      f"blocking __call__ K2 launches {counts}, {n} frames")
+                by_route = None if routes is None else dict(routes)
+                if by_route is not None:
+                    check(by_route == {"tuned": 0, "split": cfg.n_layer * (n - 1)},
+                          f"blocking __call__ K2 launches by route {by_route}")
+                    if "decode_attention_split" in self.kernels:
+                        self.kernels["decode_attention_split"]["launches"] = by_route["split"]
+                log(f"[7 api] blocking __call__ B=1 f32 int8 (bf16 KV cache) on {smi}, repeat "
+                    f"{rep}: {n} frames in {wall * 1e3:.1f} ms wall = {n / wall} frames/s "
+                    f"({pcm.size / 24_000 / wall} audio-s/s, batch mimi_decode included); "
+                    f"decode loop {m.frames_per_s} frames/s, prefill {m.prefill_ms:.1f} ms; "
+                    f"launches {counts}, K2 by route {by_route}")
+            # where a frame's device time goes: one profiled call
+            prof = _profile(lambda: tts(text), 1, 0)
+            rows = [e for e in prof.key_averages() if _on_device(e)]
+            k2 = [e for e in rows if "decode_attn" in e.key]
+            k2_ms, k2_n = sum(_self_device_ms(e) for e in k2), sum(e.count for e in k2)
+            busy, n = busy_us(trace_kernels(prof)) / 1e3, metrics[-1].frames
+            names = ", ".join(sorted({re.search(r"decode_attn\w*", e.key)[0] for e in k2}))
+            log(f"[7 api] blocking __call__ profiled on {smi}: {n} frames, device busy {busy:.3f} "
+                f"ms ({busy / n:.4f} a frame), K2 {k2_ms:.4f} ms over {k2_n} launches "
+                f"({k2_ms / max(k2_n, 1):.6f} a launch, {k2_ms / n:.4f} a frame: "
+                f"{names})")
 
     def _chunk_step(self, cfg, smi):
         from smoltts_torch import ops
@@ -2801,6 +2943,7 @@ class Smoke:
         from smoltts_torch.interop import tree_map
         from smoltts_torch.lm.samplers import GenerationSettings
         from smoltts_torch.models.dual_ar import init_params
+        from smoltts_torch.ops import attention as A
         from smoltts_torch.ops import quant_gate as G
         from smoltts_torch.ops.quant import (
             QTensor, fuse_decode_params, fuse_mimi_decode_params, quantize_decode_params,
@@ -2829,7 +2972,7 @@ class Smoke:
         trees32 = [f32(t) for t in (dense, params_q, mimi, mimi_q)]
         metrics, counts = {}, {}
         for mode, kw in (("int8", dict(int8=True, kv8=False)), ("kv8", dict(int8=False, kv8=True))):
-            ops.reset_launch_counts()
+            reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             metrics.update(G.run_quant_gates(cfg, token_cfg, settings, mcfg, *trees32,
@@ -2837,7 +2980,7 @@ class Smoke:
             torch.cuda.synchronize()
             counts[mode] = dict(ops.LAUNCHES)
             log(f"[10 gates] {mode} gates passed (f32 math) in {time.perf_counter() - t0:.2f} s; "
-                f"launches {counts[mode]}")
+                f"launches {counts[mode]}, K2 by route {dict(A.ROUTE_LAUNCHES)}")
         check(set(metrics) == set(jax_ref), f"gate metrics {sorted(metrics)}")
         check(counts["kv8"]["decode_attention"] == 2,
               f"K2 launches in gate_kv8 {counts['kv8']['decode_attention']}, expected 2 "

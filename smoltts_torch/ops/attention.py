@@ -81,18 +81,21 @@ def decode_attention_tailed_plain(
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TUNED_HEAD_DIMS = (32, 64, 128)  # the tuned kernel's templates; any other head_dim takes the generic one
-MAX_TUNED_W = 32768  # tail columns the tuned kernel compacts in shared memory; longer tails go generic
-MAX_HEAD_DIM = 8192  # the generic kernel keeps one head of q in shared memory
+TUNED_HEAD_DIMS = (32, 64, 128)  # the tuned kernel's templates; any other head_dim takes the split route
+MAX_TUNED_W = 32768  # tail columns compacted in shared memory; longer tails take the split route, masked
+MAX_HEAD_DIM = 8192  # the split route keeps one head of q in shared memory
 MAX_BATCH = 65535  # rows are a grid axis
+ROUTE_LAUNCHES = {"tuned": 0, "split": 0}  # the kernel's launches by route (LAUNCHES counts them all)
 
 
 class KernelPlan(NamedTuple):
     """What one call of the CUDA kernel is given: sizes, the dtype and
     history codes of `smoltts_decode_attention`, and which kernel serves it
     ("tuned": hd 32/64/128 over a history of the compute dtype or int8 and a
-    tail of at most MAX_TUNED_W columns, with 16-byte loads; "generic": the
-    rest, f32 compute over a bf16 cache included, with scalar loads)."""
+    tail of at most MAX_TUNED_W columns, one online-softmax pass; "split":
+    the rest, f32 compute over a bf16 cache included, a statistics pass and a
+    products pass that round as the plain version, with 16-byte loads where
+    the rows allow them)."""
 
     B: int
     H: int
@@ -137,7 +140,7 @@ def kernel_plan(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_sca
              f"tail dtype {store} under {q.dtype} compute")
     hist_dtype = torch.int8 if kv8 else store
     hist = (1 if kv8 else 0) + (0 if store == q.dtype else 2)
-    route = "tuned" if hd in TUNED_HEAD_DIMS and hist <= 1 and W <= MAX_TUNED_W else "generic"
+    route = "tuned" if hd in TUNED_HEAD_DIMS and hist <= 1 and W <= MAX_TUNED_W else "split"
     tuned = route == "tuned"
     _require(n_kv > 0 and H % n_kv == 0, f"{H} query heads over {n_kv} kv heads")
     _require(0 < hd <= MAX_HEAD_DIM, f"head_dim {hd} (at most {MAX_HEAD_DIM})")
@@ -188,6 +191,7 @@ def _kernel(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale, 
     )
     _build.check(code, "decode_attention")
     ops.LAUNCHES["decode_attention"] += 1
+    ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 

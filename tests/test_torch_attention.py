@@ -1,10 +1,12 @@
 """PyTorch port, decode attention: the plain versions (which the CPU
 dispatch takes) against the JAX package's XLA reference and its Pallas
-kernel in interpret mode, with bf16/f32 and kv8 histories; a plain-torch
-emulation of the CUDA kernel's method (chunked online softmax, fixed-order
-combine) against the JAX reference; and the kernel's host side that runs
-without a card (ctypes declarations, refused shapes). Tolerance
-rtol = atol = 1e-5 in f32 (summation order is the only difference)."""
+kernel in interpret mode, with bf16/f32 and kv8 histories; plain-torch
+emulations of the CUDA kernel's two methods (the tuned route's chunked
+online softmax, the split route's statistics and products passes, each with
+its fixed-order combine) against the JAX reference; and the kernel's host
+side that runs without a card (ctypes declarations, refused shapes, routes).
+Tolerance rtol = atol = 1e-5 in f32 (summation order is the only
+difference); over a bf16 tail, see `test_split_method_matches_jax`."""
 
 import ctypes
 import math
@@ -215,9 +217,10 @@ def _kernel_method(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_
     return out.reshape(B, H * hd)
 
 
-def _edge_case(seed, kv8, H=8, n_kv=2, hd=64):
+def _edge_case(seed, kv8, H=8, n_kv=2, hd=64, store=jnp.float32):
     """Rows: one valid position (flushed = pos = 0); a full history with an
-    empty tail; flushed past the history (clipped); a stale tail column."""
+    empty tail; flushed past the history (clipped); a stale tail column.
+    f32 q; the tail (and a history that is not int8) in `store`."""
     rng = np.random.default_rng(seed)
     B, Sh, W = 4, 40, 16
     q = rng.standard_normal((B, H, hd)).astype(np.float32)
@@ -231,14 +234,14 @@ def _edge_case(seed, kv8, H=8, n_kv=2, hd=64):
         tail_pos[b, cols] = np.arange(flushed[b], pos[b] + 1)
     tail_pos[1, 3] = Sh - 2  # stale: below flushed
     tail_pos[3, np.flatnonzero(tail_pos[3] < 0)[0]] = 4  # stale
-    jargs = dict(q=jnp.asarray(q), k_tail=jnp.asarray(kt), v_tail=jnp.asarray(vt),
+    jargs = dict(q=jnp.asarray(q), k_tail=jnp.asarray(kt, store), v_tail=jnp.asarray(vt, store),
                  pos=jnp.asarray(pos), flushed=jnp.asarray(flushed), tail_pos=jnp.asarray(tail_pos))
     if kv8:
         kq, ks = jax_quantize_kv(jnp.asarray(kh))
         vq, vs = jax_quantize_kv(jnp.asarray(vh))
         jargs.update(k_hist=kq, v_hist=vq, k_scale=ks, v_scale=vs)
     else:
-        jargs.update(k_hist=jnp.asarray(kh), v_hist=jnp.asarray(vh))
+        jargs.update(k_hist=jnp.asarray(kh, store), v_hist=jnp.asarray(vh, store))
     return jargs, {k: _t(v) for k, v in jargs.items()}
 
 
@@ -261,6 +264,109 @@ def test_kernel_method_matches_jax(kv8, case, tile, splits):
     got = _kernel_method(**targs, tile=tile, splits=splits).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, **TOL)
+
+
+# ---- the split route's method (f32 compute over a bf16 cache, any head_dim),
+# emulated. The same chunks as above. Pass 1: each chunk's online (max, sum)
+# over tiles, combined warps first, then blocks. Pass 2: the normalized
+# probabilities (the history's times v_scale, the tail's rounded to bf16
+# when a bf16 tail serves f32 compute), summed per chunk into separate
+# history and tail accumulators, the chunks combined in the same order; the
+# tail's sum is rounded to bf16 once, after the combine, then added to the
+# history's (the plain version's and the JAX package's roundings).
+
+
+def _split_method(q, k_hist, v_hist, k_tail, v_tail, pos, flushed, tail_pos, k_scale=None,
+                  v_scale=None, *, tile, splits):
+    B, H, hd = q.shape
+    n_kv, lim = k_hist.shape[1], k_hist.shape[2]
+    G = H // n_kv
+    rnd = q.dtype == torch.float32 and k_tail.dtype == torch.bfloat16
+    bf16 = lambda t: t.bfloat16().float() if rnd else t
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        f, p = int(flushed[b]), int(pos[b])
+        n_h = max(0, min(f, lim))
+        cols = [c for c in range(tail_pos.shape[1]) if 0 <= f <= int(tail_pos[b, c]) <= p]
+        for h in range(n_kv):
+            keys = torch.cat([k_hist[b, h, :n_h].float(), k_tail[b, h, cols].float()])
+            vals = torch.cat([v_hist[b, h, :n_h].float(), v_tail[b, h, cols].float()])
+            ones = torch.ones(len(cols))
+            ks = torch.cat([k_scale[b, h, :n_h] if k_scale is not None else torch.ones(n_h), ones])
+            vs = torch.cat([v_scale[b, h, :n_h] if v_scale is not None else torch.ones(n_h), ones])
+            qg = q[b, h * G:(h + 1) * G].float()
+            n, nw = keys.shape[0], splits * WARPS
+            bounds = [(w * n // nw, (w + 1) * n // nw) for w in range(nw)]
+            stats = [_online_chunk(qg, keys[lo:hi], vals[lo:hi], ks[lo:hi], vs[lo:hi], hd**-0.5, tile)
+                     for lo, hi in bounds]
+            blocks = [_combine(stats[s * WARPS:(s + 1) * WARPS]) for s in range(splits)]
+            M, L, _ = _combine(blocks)
+            logits = (qg @ keys.T) * hd**-0.5 * ks  # [G, n]: the same logits again
+            probs = torch.exp(logits - M[:, None]) / L[:, None]
+            is_hist = torch.arange(n) < n_h
+            probs = torch.where(is_hist, probs * vs, bf16(probs))
+            acc = torch.zeros(2, G, hd)  # history, tail
+            for s in range(splits):
+                blk = torch.zeros(2, G, hd)
+                for lo, hi in bounds[s * WARPS:(s + 1) * WARPS]:
+                    pc, vc, hc = probs[:, lo:hi], vals[lo:hi], is_hist[lo:hi]
+                    blk = blk + torch.stack([pc[:, hc] @ vc[hc], pc[:, ~hc] @ vc[~hc]])
+                acc = acc + blk
+            out[b, h * G:(h + 1) * G] = acc[0] + bf16(acc[1])
+    return out.reshape(B, H * hd)
+
+
+def _tail_mass(targs):
+    """Sum over the valid tail columns of p |v| for every output, in f64
+    (the plain version with the history's values zeroed and |v_tail|)."""
+    f64 = {k: v.double() if torch.is_tensor(v) and (v.is_floating_point() or v.dtype == torch.int8)
+           else v for k, v in targs.items()}
+    f64["v_hist"] = torch.zeros_like(f64["v_hist"])
+    f64["v_tail"] = f64["v_tail"].abs()
+    return decode_attention_tailed_plain(**f64).numpy()
+
+
+_SPLIT_CASES = {
+    "edges": lambda kv8, store: _edge_case(8, kv8, store=store),
+    "hd96": lambda kv8, store: _edge_case(10, kv8, H=12, n_kv=4, hd=96, store=store),
+    "hd128_g8": lambda kv8, store: _edge_case(9, kv8, H=16, n_kv=2, hd=128, store=store),
+}
+
+
+@pytest.mark.parametrize("tile,splits", [(1, 1), (16, 2), (64, 8)], ids=["tile1", "tile16", "tile64"])
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+@pytest.mark.parametrize("kv8", [False, True], ids=["same_history", "kv8_history"])
+@pytest.mark.parametrize("store", ["f32", "bf16"], ids=["f32_cache", "f32_over_bf16"])
+def test_split_method_matches_jax(store, kv8, case, tile, splits):
+    """The split route's two passes equal JAX's decode_attention_tailed with
+    f32 q, whatever the tile and the number of chunks. Over an f32 cache
+    to TOL (summation order only). Over a bf16 cache (bf16 history or int8
+    history, bf16 tail) to TOL plus the tail term's two bf16 roundings: the
+    method and JAX agree before them to TOL, so a rounding can differ only
+    where the two values straddle a rounding boundary, by one bf16 spacing,
+    at most 2**-7 of the value (8 significant bits). A tail probability p
+    rounded the other way moves the output by at most 2**-7 p |v|, so all of
+    them together by 2**-7 times the tail's mass sum(p |v|); the tail sum,
+    whose magnitude is at most that mass, by at most 2**-7 of it when
+    rounded. Bound per output: TOL + 2**-6 sum(p |v|). That bound alone
+    would also pass a method that does not round (its misses reach about
+    0.4 of it), so the outputs beyond TOL must also be rare: a rounding
+    differs only within f32 noise of a boundary (~1e-7 / 2**-8, about 3e-5
+    of the roundings), and one that differs moves one head's outputs; an
+    unrounded method misses TOL on about 45% of them."""
+    sdt = jnp.float32 if store == "f32" else jnp.bfloat16
+    jargs, targs = _SPLIT_CASES[case](kv8, sdt)
+    ref = np.asarray(jax_tailed(**jargs))
+    got = _split_method(**targs, tile=tile, splits=splits).numpy()
+    assert np.isfinite(got).all()
+    if store == "f32":
+        np.testing.assert_allclose(got, ref, **TOL)
+        return
+    assert A.kernel_plan(**targs).route == "split"
+    tol = TOL["atol"] + TOL["rtol"] * np.abs(ref)
+    excess = np.abs(got - ref) - (tol + 2.0**-6 * _tail_mass(targs))
+    assert (excess <= 0).all(), f"max excess over the bound {excess.max()}"
+    assert (np.abs(got - ref) > tol).mean() <= 0.01
 
 
 def _c_functions(source: str):
@@ -313,7 +419,7 @@ def _plan_args(B, H, n_kv, hd, lim, W, dtype=torch.float32, kv8=False, store=Non
 
 
 @pytest.mark.parametrize("H,n_kv,hd,W,route", [
-    (12, 4, 72, 8, "generic"),
+    (12, 4, 72, 8, "split"),
     (18, 2, 64, 8, "tuned"),
     (12, 4, 64, 1040, "tuned"),
 ], ids=["hd72", "group9", "tail1040"])
@@ -353,17 +459,20 @@ def test_kernel_wrapper_refuses_what_the_kernel_cannot_take(H, n_kv, hd, W, rout
     (8, 12, 4, 64, 64, 2048), (8, 12, 1, 64, 32, 128), (2, 12, 4, 32, 32, 16),
     (2, 2, 1, 32, 32, 16), (2, 12, 4, 96, 32, 16), (1, 12, 1, 96, 32, 2048),
     (1, 64, 1, 256, 8, 4), (1, 3, 3, 8, 8, 4), (1, 4, 2, 33, 8, 3), (1, 4, 1, 64, 8, 40000),
+    (1, 12, 4, 64, 2048, 128),
 ], ids=["W2048", "G12", "hd32", "hd32_tiny", "hd96", "hd96_G12_W2048", "G64_hd256",
-        "hd8_G1", "hd33", "W40000"])
+        "hd8_G1", "hd33", "W40000", "blocking_B1"])
 def test_kernel_plan_accepts_every_shape_jax_takes(B, H, n_kv, hd, lim, W, dtype, kv8, store):
     """No shape that JAX's decode_attention_tailed takes is refused: the
     tuned kernel takes hd 32/64/128 over a history of the compute dtype or
     int8 (any group, via tiles of 8 heads; a tail of up to MAX_TUNED_W
-    columns, compacted in shared memory), the generic kernel every other
-    head_dim, longer tails and f32 compute over a bf16 cache."""
+    columns, compacted in shared memory), the split route every other
+    head_dim, longer tails and f32 compute over a bf16 cache: the blocking
+    generator's attention (B=1, H 12/4, hd 64, lim 2048, W 128, f32 over the
+    bf16 cache it keeps for an f32 model) takes the split route."""
     plan = A.kernel_plan(**_plan_args(B, H, n_kv, hd, lim, W, dtype, kv8, store))
     tuned = hd in (32, 64, 128) and store is None and W <= A.MAX_TUNED_W
-    assert plan.route == ("tuned" if tuned else "generic")
+    assert plan.route == ("tuned" if tuned else "split")
     assert (plan.B, plan.H, plan.n_kv, plan.hd, plan.lim, plan.W) == (B, H, n_kv, hd, lim, W)
     assert plan.hist == (1 if kv8 else 0) + (2 if store is not None else 0)
 
@@ -397,4 +506,4 @@ def test_tailed_wide_shapes_match_jax(shape, kv8):
     targs = {k: _t(v) for k, v in jargs.items()}
     ref = np.asarray(jax_tailed(**jargs))
     np.testing.assert_allclose(decode_attention_tailed_plain(**targs).numpy(), ref, **TOL)
-    assert A.kernel_plan(**targs).route == ("generic" if hd == 96 else "tuned")
+    assert A.kernel_plan(**targs).route == ("split" if hd == 96 else "tuned")
