@@ -19,6 +19,7 @@ import torch
 from smoltts_torch import resolve_device
 from smoltts_torch.config import DualARConfig, ModelType
 from smoltts_torch.tokenizer import TokenConfig, load_tokenizer
+from smoltts_torch.utils.profiling import SPANS
 
 # The reference's Kokoro voice registry.
 VOICES = [
@@ -38,6 +39,13 @@ VOICES = [
 
 def _pcm_numpy(pcm: torch.Tensor) -> np.ndarray:
     return pcm.float().cpu().numpy().flatten()
+
+
+def _pcm_to_host(pcm: torch.Tensor) -> np.ndarray:
+    """A streamed chunk on the host: where the library waits for the card
+    (span `stream.to_host`)."""
+    with SPANS.span("stream.to_host"):
+        return _pcm_numpy(pcm)
 
 
 class SmolTTS:
@@ -177,7 +185,7 @@ class SmolTTS:
         state, mstate, gen, out = prefill_step(self.params, self.codec_params, state, mstate,
                                                torch.from_numpy(padded).to(dev),
                                                torch.from_numpy(lens).to(dev), self.generator)
-        yield _pcm_numpy(out.pcm)
+        yield _pcm_to_host(out.pcm)
         flush_step = make_flush_step(device=dev)
         cadence = flush_cadence(state, mstate)
         since_flush = 0
@@ -190,7 +198,7 @@ class SmolTTS:
             state, mstate, gen, out = stream_step(self.params, self.codec_params, state, mstate,
                                                   gen)
             since_flush += 1
-            yield _pcm_numpy(out.pcm)
+            yield _pcm_to_host(out.pcm)
 
     def create_speaker(self, samples: List[dict], system_prompt: Optional[str] = None) -> np.ndarray:
         """A voice-cloning conditioning prompt from (text, audio) samples, by

@@ -52,6 +52,7 @@ from smoltts_torch.lm.decode import decode_frame, init_decode_state, prefill
 from smoltts_torch.lm.generate import pad_prompts
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.tokenizer import TokenConfig
+from smoltts_torch.utils.profiling import SPANS, TimedLock, lock_counters
 
 
 @dataclass
@@ -192,7 +193,11 @@ class DecodeEngine:
         self._pending: List[Tuple[int, np.ndarray]] = []
         # Dispatch/fetch economics: fetch_calls per dispatched frame stay
         # ~1/chunk_frames in steady state. frame_steps counts the frames the
-        # whole batch advanced, admissions the prefill dispatches.
+        # whole batch advanced, admissions the prefill dispatches. An
+        # EngineLoop adds its dispatcher's seconds in dispatch_step
+        # (dispatch_s) and asleep at the max_ahead gate with streams live
+        # (gate_wait_s), and its lock's seconds waited and held and its
+        # acquisitions per role (utils/profiling.py TimedLock).
         self.stats = {
             "dispatches": 0,
             "frames_dispatched": 0,
@@ -201,6 +206,9 @@ class DecodeEngine:
             "urgent_fetched": 0,
             "frame_steps": 0,
             "admissions": 0,
+            "dispatch_s": 0.0,
+            "gate_wait_s": 0.0,
+            **lock_counters(),
         }
         # Per-stream first-audio latency stamps (submit -> admit -> fetch_start
         # -> fetch_end -> first), kept until pop_timing() or cap eviction.
@@ -215,7 +223,7 @@ class DecodeEngine:
         self._stream_steps: Dict[int, callable] = {}
         self._chunk_steps: Dict[int, callable] = {}
         # Ring-tail flush cadence of the LM (and codec transformer) tails.
-        self._flush = make_flush_step(device=self.device)
+        self._flush_step = make_flush_step(device=self.device)
         self._since_flush = 0
         self._flush_every = flush_cadence(self.state, self.mimi_state)
         # A chunk's K frames all land in the ring tails before the next flush.
@@ -345,24 +353,30 @@ class DecodeEngine:
                 attend_limit=lim, device=self.device, mesh=self.mesh)
         return self._chunk_steps[lim]
 
+    def _flush(self, state, mstate):
+        """Flush the LM and codec ring tails -> (state', mstate')."""
+        with SPANS.span("engine.flush"):
+            return self._flush_step(state, mstate)
+
     def _advance(self, state, mstate, K: int, lim: int, generator):
         """K frames for every slot -> (state', mstate', (codes, is_audio,
         finished, slow), pcm or None); a chunk's outputs frame-major [K, B, ...]."""
-        if mstate is None:
-            state, o = decode_frame(self.params, self.cfg, self.token_cfg, self.settings, state,
-                                    generator, attend_limit=lim, mesh=self.mesh)
-            return state, None, (o.audio_codes, o.is_audio, o.finished, o.slow_token), None
-        if K == 1:
-            state, mstate, _, o = self._stream_step(lim)(self.params, self.mimi_params, state,
-                                                         mstate, generator)
-            return (state, mstate, (o.audio_codes, o.is_audio, o.finished, o.slow_token),
-                    self._emit_pcm(o.pcm))
-        state, mstate, _, o = self._chunk_step(lim)(self.params, self.mimi_params, state, mstate,
-                                                    generator)
-        B, spf = o.pcm.shape[0], o.pcm.shape[1] // K
-        pcm = self._emit_pcm(o.pcm).reshape(B, K, spf, 1).transpose(0, 1)
-        return state, mstate, (o.audio_codes.permute(2, 0, 1), o.is_audio.t(),
-                               o.finished_frames.t(), o.slow_token.t()), pcm
+        with SPANS.span("engine.advance"):
+            if mstate is None:
+                state, o = decode_frame(self.params, self.cfg, self.token_cfg, self.settings,
+                                        state, generator, attend_limit=lim, mesh=self.mesh)
+                return state, None, (o.audio_codes, o.is_audio, o.finished, o.slow_token), None
+            if K == 1:
+                state, mstate, _, o = self._stream_step(lim)(self.params, self.mimi_params, state,
+                                                             mstate, generator)
+                return (state, mstate, (o.audio_codes, o.is_audio, o.finished, o.slow_token),
+                        self._emit_pcm(o.pcm))
+            state, mstate, _, o = self._chunk_step(lim)(self.params, self.mimi_params, state,
+                                                        mstate, generator)
+            B, spf = o.pcm.shape[0], o.pcm.shape[1] // K
+            pcm = self._emit_pcm(o.pcm).reshape(B, K, spf, 1).transpose(0, 1)
+            return state, mstate, (o.audio_codes.permute(2, 0, 1), o.is_audio.t(),
+                                   o.finished_frames.t(), o.slow_token.t()), pcm
 
     def _admit(self, state, mstate, slots: List[int], prompt: np.ndarray, lens: np.ndarray,
                generator):
@@ -377,39 +391,40 @@ class DecodeEngine:
         )
         from smoltts_torch.parallel.serving import take_slots
 
-        n = len(slots)
-        rows, local = self._owned(slots)
-        idx = self._upload(np.asarray(local, np.int64))
-        pick = None if rows == list(range(n)) else self._upload(np.asarray(rows, np.int64))
-        if mstate is not None and rows:
-            reset_stream_slots(mstate, idx)
-        sub = init_decode_state(self.cfg, n, self.S, dtype=state.k.dtype, device=self.device,
-                                mesh=None if self.mesh is None else self.mesh.model_only())
-        sub, out = prefill(self.params, self.cfg, self.token_cfg, self.settings, sub,
-                           self._upload(prompt), self._upload(lens), generator, mesh=self.mesh)
-        if rows:
-            mine = sub if pick is None else take_slots(sub, pick)
-            for big, small in ((state.k, mine.k), (state.v, mine.v),
-                               (state.k_scale, mine.k_scale), (state.v_scale, mine.v_scale)):
-                if big is not None:
-                    big.index_copy_(1, idx, small)
-            # stale ring-tail entries of a reused slot are invalidated; the
-            # prompt's K/V went straight to the history
-            state.tail_pos.index_fill_(0, idx, -1)
-            for name in ("flushed", "pos", "prev_tokens", "finished"):
-                getattr(state, name).index_copy_(0, idx, getattr(mine, name))
-        pcm = None
-        if mstate is not None:
-            kv8 = mstate.transformer.k_scale is not None
-            msub = decode_stream_init(self.mimi_cfg, n, dtype=mstate.upsample_tail.dtype,
-                                      kv_dtype=torch.int8 if kv8 else None, device=self.device)
-            msub, pcm = mimi_decode_step(self.mimi_params, self.mimi_cfg, msub,
-                                         out.audio_codes[:, :, None])
-            pcm = self._emit_pcm(pcm)
+        with SPANS.span("engine.admit"):
+            n = len(slots)
+            rows, local = self._owned(slots)
+            idx = self._upload(np.asarray(local, np.int64))
+            pick = None if rows == list(range(n)) else self._upload(np.asarray(rows, np.int64))
+            if mstate is not None and rows:
+                reset_stream_slots(mstate, idx)
+            sub = init_decode_state(self.cfg, n, self.S, dtype=state.k.dtype, device=self.device,
+                                    mesh=None if self.mesh is None else self.mesh.model_only())
+            sub, out = prefill(self.params, self.cfg, self.token_cfg, self.settings, sub,
+                               self._upload(prompt), self._upload(lens), generator, mesh=self.mesh)
             if rows:
-                scatter_stream_state(mstate, msub if pick is None else take_slots(msub, pick),
-                                     idx)
-        return state, out, pcm
+                mine = sub if pick is None else take_slots(sub, pick)
+                for big, small in ((state.k, mine.k), (state.v, mine.v),
+                                   (state.k_scale, mine.k_scale), (state.v_scale, mine.v_scale)):
+                    if big is not None:
+                        big.index_copy_(1, idx, small)
+                # stale ring-tail entries of a reused slot are invalidated; the
+                # prompt's K/V went straight to the history
+                state.tail_pos.index_fill_(0, idx, -1)
+                for name in ("flushed", "pos", "prev_tokens", "finished"):
+                    getattr(state, name).index_copy_(0, idx, getattr(mine, name))
+            pcm = None
+            if mstate is not None:
+                kv8 = mstate.transformer.k_scale is not None
+                msub = decode_stream_init(self.mimi_cfg, n, dtype=mstate.upsample_tail.dtype,
+                                          kv_dtype=torch.int8 if kv8 else None, device=self.device)
+                msub, pcm = mimi_decode_step(self.mimi_params, self.mimi_cfg, msub,
+                                             out.audio_codes[:, :, None])
+                pcm = self._emit_pcm(pcm)
+                if rows:
+                    scatter_stream_state(mstate, msub if pick is None else take_slots(msub, pick),
+                                         idx)
+            return state, out, pcm
 
     @torch.no_grad()
     def warm(self, prompt_len: Optional[int] = None, buckets: Optional[List[int]] = None,
@@ -772,16 +787,20 @@ class EngineLoop:
 
     `max_ahead` bounds the un-fetched records dispatch may run ahead; it is
     also the first-audio latency knob (a new stream's prefill runs behind at
-    most `max_ahead` queued records)."""
+    most `max_ahead` queued records).
+
+    The engine lock is a `TimedLock` over `engine.stats`: the dispatcher
+    takes it as "dispatch", fetchers (taking records, accounting them) as
+    "fetch", `submit` as "submit", anything else as "other"."""
 
     def __init__(self, engine: DecodeEngine, poll_interval: float = 0.002,
                  max_ahead: Optional[int] = None, fetchers: int = 2):
         self.engine = engine
         self.poll_interval = poll_interval
         self._queues: Dict[int, "queue.Queue"] = {}
-        self._lock = threading.Lock()
+        self._lock = TimedLock(engine.stats)
         self._stop = threading.Event()
-        self._acct_cv = threading.Condition(self._lock)
+        self._acct_cv = threading.Condition(self._lock.role("fetch"))
         self._max_ahead = (max_ahead if max_ahead is not None
                            else engine.inflight + max(2, engine.fetch_every))
         # The drain invariant: below inflight + fetch_every the dispatch gate
@@ -804,26 +823,41 @@ class EngineLoop:
             t.start()
 
     def submit(self, prompt: np.ndarray, max_frames: Optional[int] = None) -> "queue.Queue":
-        q: "queue.Queue" = queue.Queue()
-        with self._lock:
+        lock = self._lock.role("submit")
+        with SPANS.span("engine.submit_wait"):
+            lock.acquire()
+        try:
             sid = self.engine.submit(prompt, max_frames)
+            q: "queue.Queue" = queue.Queue()
             self._queues[sid] = q
+        finally:
+            lock.release()
         q.sid = sid  # for engine.pop_timing(sid)
         return q
 
     def _dispatch_loop(self):
+        lock, stats = self._lock.role("dispatch"), self.engine.stats
+        gate_wait = 0.0  # asleep at the shut gate since the lock was last held
         while not self._stop.is_set():
-            with self._lock:
+            with lock:
+                stats["gate_wait_s"] += gate_wait
                 eng = self.engine
+                live = bool(eng._pending or eng._slot_to_stream)
                 gate_open = len(eng._queue) < self._max_ahead
                 admit_past_gate = bool(not gate_open and eng._pending and eng._free)
-                work = (bool(eng._pending or eng._slot_to_stream) and gate_open) or admit_past_gate
+                work = (live and gate_open) or admit_past_gate
                 if work:
                     # Admissions pass the max_ahead gate (admit_only: no bulk
                     # frame), adding one small urgent record.
+                    t0 = time.perf_counter()
                     eng.dispatch_step(admit_only=admit_past_gate)
+                    stats["dispatch_s"] += time.perf_counter() - t0
+            gate_wait = 0.0
             if not work:
+                t0 = time.perf_counter()
                 time.sleep(self.poll_interval)
+                if live:  # the gate is shut: waiting on fetch
+                    gate_wait = time.perf_counter() - t0
 
     def _emit(self, frames) -> None:
         for sid, frame in frames:
@@ -849,8 +883,9 @@ class EngineLoop:
                 self._acct_cv.notify_all()
 
     def _fetch_loop(self, kind: str = "all"):
+        lock = self._lock.role("fetch")
         while not self._stop.is_set():
-            with self._lock:
+            with lock:
                 records = self.engine.take_due(kind)
             if not records:
                 time.sleep(self.poll_interval)
@@ -860,7 +895,7 @@ class EngineLoop:
 
     def stop(self):
         self._stop.set()
-        with self._acct_cv:
+        with self._lock:
             self._acct_cv.notify_all()
         self._dispatcher.join(timeout=5)
         for t in self._fetchers:

@@ -8,6 +8,10 @@ tails) return plain
 callables with the JAX package's signatures: state in, state out, with the
 generator in the place of the PRNG key. Large buffers are updated in place
 (see lm/decode.py), so a state passed to a step must not be reused.
+
+Each call records its span (`step.prefill`, `step.stream`, `step.chunk`,
+`step.flush`; utils/profiling.py `SPANS`), and inside it each LM frame
+(`lm.frame`, the prefill included) and each vocoder step (`codec.step`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from smoltts_torch.config import DualARConfig
 from smoltts_torch.lm.decode import DecodeState, decode_frame, flush_kv, prefill
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.tokenizer import TokenConfig
+from smoltts_torch.utils.profiling import SPANS
 
 
 class StreamStepOutput(NamedTuple):
@@ -47,14 +52,17 @@ def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Genera
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
-        state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
-                                  attend_limit=attend_limit, mesh=mesh)
-        mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
-                                           out.audio_codes[:, :, None])
-        return state, mimi_state, generator, StreamStepOutput(
-            pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio, finished=out.finished,
-            slow_token=out.slow_token,
-        )
+        with SPANS.span("step.stream"):
+            with SPANS.span("lm.frame"):
+                state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
+                                          attend_limit=attend_limit, mesh=mesh)
+            with SPANS.span("codec.step"):
+                mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
+                                                   out.audio_codes[:, :, None])
+            return state, mimi_state, generator, StreamStepOutput(
+                pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio,
+                finished=out.finished, slow_token=out.slow_token,
+            )
 
     return step
 
@@ -68,14 +76,17 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state, mimi_state, prompt, prompt_len, generator):
-        state, out = prefill(lm_params, cfg, token_cfg, settings, state, prompt, prompt_len,
-                             generator, mesh=mesh)
-        mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
-                                           out.audio_codes[:, :, None])
-        return state, mimi_state, generator, StreamStepOutput(
-            pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio, finished=out.finished,
-            slow_token=out.slow_token,
-        )
+        with SPANS.span("step.prefill"):
+            with SPANS.span("lm.frame"):
+                state, out = prefill(lm_params, cfg, token_cfg, settings, state, prompt,
+                                     prompt_len, generator, mesh=mesh)
+            with SPANS.span("codec.step"):
+                mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
+                                                   out.audio_codes[:, :, None])
+            return state, mimi_state, generator, StreamStepOutput(
+                pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio,
+                finished=out.finished, slow_token=out.slow_token,
+            )
 
     return step
 
@@ -93,22 +104,26 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
-        pcm, codes, is_audio, slow, finished = [], [], [], [], []
-        for _ in range(frames_per_chunk):
-            state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
-                                      attend_limit=attend_limit, mesh=mesh)
-            mimi_state, p = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
-                                             out.audio_codes[:, :, None])
-            pcm.append(p)
-            codes.append(out.audio_codes)
-            is_audio.append(out.is_audio)
-            slow.append(out.slow_token)
-            finished.append(out.finished)
-        return state, mimi_state, generator, StreamStepOutput(
-            pcm=torch.cat(pcm, dim=1), audio_codes=torch.stack(codes, dim=-1),
-            is_audio=torch.stack(is_audio, dim=-1), finished=state.finished,
-            slow_token=torch.stack(slow, dim=-1), finished_frames=torch.stack(finished, dim=-1),
-        )
+        with SPANS.span("step.chunk"):
+            pcm, codes, is_audio, slow, finished = [], [], [], [], []
+            for _ in range(frames_per_chunk):
+                with SPANS.span("lm.frame"):
+                    state, out = decode_frame(lm_params, cfg, token_cfg, settings, state,
+                                              generator, attend_limit=attend_limit, mesh=mesh)
+                with SPANS.span("codec.step"):
+                    mimi_state, p = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
+                                                     out.audio_codes[:, :, None])
+                pcm.append(p)
+                codes.append(out.audio_codes)
+                is_audio.append(out.is_audio)
+                slow.append(out.slow_token)
+                finished.append(out.finished)
+            return state, mimi_state, generator, StreamStepOutput(
+                pcm=torch.cat(pcm, dim=1), audio_codes=torch.stack(codes, dim=-1),
+                is_audio=torch.stack(is_audio, dim=-1), finished=state.finished,
+                slow_token=torch.stack(slow, dim=-1),
+                finished_frames=torch.stack(finished, dim=-1),
+            )
 
     return step
 
@@ -120,10 +135,11 @@ def make_flush_step(device=None):
 
     @torch.no_grad()
     def step(state: DecodeState, mimi_state: Optional[MimiStreamState]):
-        state = flush_kv(state)
-        if mimi_state is not None:
-            mimi_state = flush_mimi_state(mimi_state)
-        return state, mimi_state
+        with SPANS.span("step.flush"):
+            state = flush_kv(state)
+            if mimi_state is not None:
+                mimi_state = flush_mimi_state(mimi_state)
+            return state, mimi_state
 
     return step
 

@@ -60,7 +60,12 @@ def build_app(core: TTSCore, engine_loop=None, metrics=None) -> HttpServer:
 
     @app.get("/metrics")
     async def metrics_route(req: Request):
-        return Response.json(metrics.snapshot())
+        snap = metrics.snapshot()
+        if engine_loop is not None:
+            # the engine's counters, lock waits and holds by role included
+            # (a copy without the engine lock, which a dispatch holds long)
+            snap["engine"] = dict(engine_loop.engine.stats)
+        return Response.json(snap)
 
     @app.post("/v1/audio/speech")
     async def openai_speech(req: Request):

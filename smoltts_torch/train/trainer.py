@@ -17,8 +17,8 @@ the global shape.
 
 from __future__ import annotations
 
+import contextlib
 import time
-from pathlib import Path
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -32,6 +32,7 @@ from smoltts_torch.parallel.collectives import sum_data_flat
 from smoltts_torch.parallel.mesh import SEQUENCE_SHARDING
 from smoltts_torch.train.loss import Losses, compute_losses, forward_train_loss
 from smoltts_torch.train.optim import AdamW, create_optimizer, tree_leaves
+from smoltts_torch.utils.profiling import trace
 
 
 class TrainState(NamedTuple):
@@ -140,8 +141,8 @@ def train_loop(cfg: DualARConfig, config: TrainingConfig, state: TrainState, tx:
     """Iterate batches: step, log every `log_every_n_steps`, validate every
     `val_every_n_steps`, save every `save_every_n_steps`. `device=None`
     means CUDA; the state's parameters must live there. With profile_steps
-    > 0, steps [2, 2 + profile_steps) are traced by torch.profiler into
-    profile_dir. On a `mesh` (every rank calls it with its own batches, its
+    > 0, steps [2, 2 + profile_steps) are traced by `utils.profiling.trace`
+    into profile_dir. On a `mesh` (every rank calls it with its own batches, its
     part of the state and the same generator), `sequence_parallel` splits
     the slow trunk's activations as SEQUENCE_SHARDING; without a mesh it
     does nothing, as JAX's loop wires it only for parameters on a mesh."""
@@ -160,9 +161,10 @@ def train_loop(cfg: DualARConfig, config: TrainingConfig, state: TrainState, tx:
             break
         if config.profile_steps > 0:
             if i == 2 and prof is None:
-                prof = _start_profiler(dev)
+                prof = contextlib.ExitStack()
+                prof.enter_context(trace(config.profile_dir))
             elif prof is not None and i >= 2 + config.profile_steps:
-                _stop_profiler(prof, config.profile_dir)
+                prof.close()
                 prof = None
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
         state, metrics = train_step(state, batch, seed)
@@ -180,20 +182,5 @@ def train_loop(cfg: DualARConfig, config: TrainingConfig, state: TrainState, tx:
         if checkpoint_manager and step % config.save_every_n_steps == 0 and step > 0:
             checkpoint_manager.save(state, step)
     if prof is not None:
-        _stop_profiler(prof, config.profile_dir)
+        prof.close()
     return state
-
-
-def _start_profiler(dev: torch.device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
-    prof.start()
-    return prof
-
-
-def _stop_profiler(prof, out_dir: str) -> None:
-    prof.stop()
-    Path(out_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(out_dir) / "trace.json"))

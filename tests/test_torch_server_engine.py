@@ -75,6 +75,12 @@ def test_concurrent_streams_and_metrics(served):
     assert m["requests"] == 3
     assert m["frames"] >= 3
     assert "first_audio_ms_p50" in m
+    # the engine's counters, the lock's by role among them
+    eng = m["engine"]
+    assert eng["lock_acquires.submit"] == 3 and eng["frame_steps"] > 0
+    for role in ("dispatch", "fetch", "submit", "other"):
+        assert eng[f"lock_held_s.{role}"] >= 0 and eng[f"lock_wait_s.{role}"] >= 0
+    assert eng["dispatch_s"] > 0
 
 
 def single_stream(core, engine, prompt, n_frames, flush_before=()):

@@ -1,10 +1,11 @@
 """PyTorch port, `utils/compare.py` against the JAX package's on `.npy`,
 `.npz` and `.safetensors` dumps (the same verdicts and report lines), and
-`utils/profiling.py`: `trace` writes a Chrome trace, `device_op_summary`
-sums a hand-written one."""
+`utils/profiling.py`: `trace` writes a Chrome trace with the host spans
+of its window merged in, `device_op_summary` sums a hand-written one."""
 
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 from smoltts_tpu.utils import compare as jcmp
 from smoltts_torch.io.safetensors import save_file
 from smoltts_torch.utils import compare as tcmp
-from smoltts_torch.utils.profiling import device_op_summary, trace
+from smoltts_torch.utils.profiling import SPANS, device_op_summary, trace
 
 
 def _dumps(tmp_path):
@@ -66,13 +67,45 @@ def test_compare_bf16_safetensors_and_unknown_suffix(tmp_path):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    def worker():
+        with SPANS.span("test.worker"):
+            time.sleep(0.002)
+
+    with SPANS.span("test.before"):
+        pass
     with trace(str(tmp_path / "tr")) as d:
-        torch.randn(64, 64) @ torch.randn(64, 64)
+        with SPANS.span("test.outer"):
+            torch.randn(64, 64) @ torch.randn(64, 64)
+        with SPANS.span("test.probe"):
+            with torch.profiler.record_function("test.probe_range"):
+                pass
+        th = threading.Thread(target=worker)
+        th.start()
+        th.join(timeout=10)
+    assert not th.is_alive()
+    with SPANS.span("test.after"):
+        pass
     assert d == str(tmp_path / "tr")
     files = list((tmp_path / "tr").glob("*.pt.trace.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    # the window's host spans, one track per thread, on the trace's clock
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "host_span" and e["name"].startswith("test.")}
+    assert sorted(spans) == ["test.outer", "test.probe", "test.worker"]
+    assert spans["test.outer"]["tid"] != spans["test.worker"]["tid"]
+    tracks = {e["tid"] for e in events if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    assert {spans["test.outer"]["tid"], spans["test.worker"]["tid"]} <= tracks
+    outer = spans["test.outer"]
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    assert outer["ts"] <= float(mm["ts"]) <= outer["ts"] + outer["dur"]
+    # a profiled range inside a span lands inside it, to well under a
+    # millisecond (the first range of a profile can take one to enter)
+    probe = spans["test.probe"]
+    (rng,) = [e for e in events if e.get("name") == "test.probe_range"]
+    assert abs(float(rng["ts"]) - probe["ts"]) < 500
+    assert abs(float(rng["ts"]) + float(rng["dur"]) - probe["ts"] - probe["dur"]) < 500
     assert device_op_summary(str(tmp_path / "tr")) == []  # no card: no kernel events
     assert device_op_summary(str(tmp_path / "none")) == []
 
