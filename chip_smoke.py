@@ -123,6 +123,15 @@ Phases:
      which one process restores, converts (io/convert.py) and serves with
      SmolTTS(dir, "int8+kv8"): finite PCM; (v) what drawing dropout masks
      at the global shape costs a rank at 16 x 768, against its own shape
+  15 the vocoder step replayed as a CUDA graph (codec/graph.py
+     VocoderGraphs) against the eager in-place step, at B=1 over an f32
+     state (f32 ring, then the kv8 ring) and at B=64 over a bf16 state with
+     the kv8 ring (phase 5's int8-linear Mimi tree): 64 frames of random
+     codes, flushes at the cadence, a slot reset and an admission scatter
+     between frames; the PCM and every state leaf compared each frame
+     (bit-equal expected; any difference printed with its size), the
+     captures and replays counted, and host ms per step eager against
+     replayed
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -143,6 +152,7 @@ import sys
 import tempfile
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -3875,6 +3885,120 @@ class Smoke:
             f"{ {k: v[1:] for k, v in extra.items()} }; extra ms a step per rank {per_mesh} "
             f"on {smi}")
 
+    def phase15_vocoder_graph(self):
+        from smoltts_torch.codec.config import MimiConfig
+        from smoltts_torch.codec.graph import VocoderGraphs, step_in_place
+        from smoltts_torch.codec.mimi import (
+            decode_stream_init, flush_mimi_state, init_mimi_params, map_stream_state,
+            reset_stream_slots, scatter_stream_state, stream_state_leaves,
+        )
+        from smoltts_torch.ops.quant import fuse_mimi_decode_params, quantize_mimi_params
+        from smoltts_torch.utils.profiling import SPANS
+
+        torch = self.torch
+        dev, mcfg, smi = self.dev, MimiConfig(), nvidia_smi()
+        f32 = fuse_mimi_decode_params(init_mimi_params(mcfg, seed=0, device=dev))
+        bf16 = quantize_mimi_params(fuse_mimi_decode_params(
+            init_mimi_params(mcfg, seed=0, dtype=torch.bfloat16, device=dev)))
+        frames, tail = 64, 64
+        cadence = tail // 2 - 1
+        cases = [("B=1 f32", 1, f32, torch.float32, None),
+                 ("B=1 f32 kv8", 1, f32, torch.float32, torch.int8),
+                 ("B=64 bf16 kv8", 64, bf16, torch.bfloat16, torch.int8)]
+
+        def diff(a, b):
+            d = (a.float() - b.float()).abs()
+            return int((a != b).sum()), float(d.max()) if d.numel() else 0.0
+
+        for name, B, params, dtype, kv in cases:
+            rng = np.random.default_rng(B)
+            init = lambda n: decode_stream_init(mcfg, n, dtype=dtype, tail_len=tail,  # noqa: E731
+                                                kv_dtype=kv, device=dev)
+            eager, graphed, graphs = init(B), init(B), VocoderGraphs()
+            slots = torch.tensor([0] if B == 1 else [3, 17], device=dev)
+            t_mark = time.perf_counter()
+            host = {"eager": [], "graph": []}
+            worst = {"pcm": (0, 0.0), "state": (0, 0.0)}
+            since_flush = 0
+            with torch.no_grad():
+                for f in range(frames):
+                    if since_flush >= cadence:
+                        eager, graphed = flush_mimi_state(eager), flush_mimi_state(graphed)
+                        since_flush = 0
+                    if f == 20:  # a stream ends and its slots are reused
+                        reset_stream_slots(eager, slots)
+                        reset_stream_slots(graphed, slots)
+                    if f == 40:  # an admission: a sub-state's first frame scattered in
+                        sub = init(len(slots))
+                        c = torch.from_numpy(rng.integers(0, mcfg.codebook_size,
+                                                          (len(slots), 8, 1)).astype(np.int32))
+                        sub, _ = step_in_place(params, mcfg, sub, c.to(dev))
+                        scatter_stream_state(eager, map_stream_state(torch.clone, sub), slots)
+                        scatter_stream_state(graphed, sub, slots)
+                    codes = torch.from_numpy(rng.integers(0, mcfg.codebook_size,
+                                                          (B, 8, 1)).astype(np.int32)).to(dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, want = step_in_place(params, mcfg, eager, codes)
+                    t1 = time.perf_counter()
+                    _, got = graphs(params, mcfg, graphed, codes)
+                    t2 = time.perf_counter()
+                    since_flush += 1
+                    host["eager"].append((t1 - t0) * 1e3)
+                    if f:
+                        host["graph"].append((t2 - t1) * 1e3)
+                    else:  # the first call captures
+                        host["capture"] = (t2 - t1) * 1e3
+                    n, m = diff(got, want)
+                    if n:
+                        log(f"[15 graph] {name} frame {f}: PCM differs in {n} samples, "
+                            f"max |diff| {m}")
+                        worst["pcm"] = max(worst["pcm"], (n, m), key=lambda x: x[1])
+                    for i, (a, b) in enumerate(zip(stream_state_leaves(graphed),
+                                                   stream_state_leaves(eager))):
+                        n, m = diff(a, b)
+                        if n:
+                            log(f"[15 graph] {name} frame {f}: state leaf {i} "
+                                f"{tuple(a.shape)} {a.dtype} differs in {n} elements, "
+                                f"max |diff| {m}")
+                            worst["state"] = max(worst["state"], (n, m), key=lambda x: x[1])
+            spans = [s[0] for s in SPANS.snapshot() if s[1] >= t_mark]
+            captures, replays = spans.count("codec.capture"), spans.count("codec.replay")
+            log(f"[15 graph] {name}, {frames} frames (flush every {cadence}, a slot reset at "
+                f"20, an admission scatter at 40) on {smi}: PCM bit-equal "
+                f"{worst['pcm'][0] == 0} (worst {worst['pcm']}), state bit-equal "
+                f"{worst['state'][0] == 0} (worst {worst['state']}); {captures} capture, "
+                f"{replays} replays; host ms per step median eager "
+                f"{float(np.median(host['eager']))}, replayed "
+                f"{float(np.median(host['graph']))}; the first call (capture and replay) "
+                f"{host['capture']} ms")
+            check(captures == 1 and replays == frames,
+                  f"{name}: {captures} captures and {replays} replays for {frames} frames")
+            check(worst["pcm"][1] < 0.04, f"{name}: replayed PCM off eager by {worst['pcm']}")
+            # the device ops a step launches, eager against replayed (a copy of
+            # the eager state, so nothing above changes)
+            other = flush_mimi_state(map_stream_state(torch.clone, eager))
+            graphed = flush_mimi_state(graphed)
+            counts = {}
+            with torch.no_grad():
+                for side, fn in (("eager", lambda: step_in_place(params, mcfg, other, codes)),
+                                 ("graph", lambda: graphs(params, mcfg, graphed, codes))):
+                    try:
+                        ev = trace_events(_profile(fn, iters=5, warmup=1))
+                    except Exception as e:  # a diagnostic: its absence fails nothing
+                        log(f"[15 graph] {name}: profiler not measured ({e!r})")
+                        break
+                    ops = [e["name"] for e in ev
+                           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+                    counts[side] = Counter(ops)
+                    log(f"[15 graph] {name} {side}: {len(ops) / 5} device ops a step, "
+                        f"{busy_us(kernel_intervals(ev)) / 5 / 1e3} ms busy a step (profiler, "
+                        f"5 steps)")
+            if len(counts) == 2:
+                moved = (counts["graph"] - counts["eager"]) + (counts["eager"] - counts["graph"])
+                log(f"[15 graph] {name}: ops whose count differs (graph - eager, 5 steps): "
+                    f"{[(k[:70], counts['graph'][k] - counts['eager'][k]) for k, _ in moved.most_common(12)]}")
+
     def run(self, phases=None):
         table = [
             (1, self.phase1_build), (2, self.phase2_attention), (3, self.phase3_fast_loop),
@@ -3882,7 +4006,7 @@ class Smoke:
             (7, self.phase7_library), (8, self.phase8_engine), (9, self.phase9_server),
             (10, self.phase10_gates), (11, self.phase11_training),
             (12, self.phase12_data_pipeline), (13, self.phase13_parallel),
-            (14, self.phase14_parallel_training),
+            (14, self.phase14_parallel_training), (15, self.phase15_vocoder_graph),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

@@ -10,6 +10,7 @@ attention, the slow-token sampler and, for int8 trees, the fast loop.
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 from typing import Iterator, List, Optional, Union
 
@@ -61,6 +62,7 @@ class SmolTTS:
         `device=None` means CUDA; `seed` seeds the sampling generator, which
         advances across calls."""
         from smoltts_torch.codec.config import MimiConfig
+        from smoltts_torch.codec.graph import VocoderGraphs
         from smoltts_torch.codec.mimi import load_mimi
         from smoltts_torch.io.checkpoint import load_params
         from smoltts_torch.lm.prompt import PromptEncoder
@@ -100,6 +102,13 @@ class SmolTTS:
 
         self.sampling_rate = self.codec_config.sampling_rate
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # stream()'s B=1 vocoder state, reset in place for each stream and
+        # replayed as a CUDA graph; a stream() that finds it taken by another
+        # open stream steps a state of its own eagerly.
+        self._vocoder = VocoderGraphs(max_graphs=1)
+        self._stream_mimi = None  # made at the first stream()
+        self._stream_mimi_lock = threading.Lock()
+        self._stream_mimi_taken = False
 
         # voices.json maps names to speaker ids; speakers/<name>.npy holds
         # saved conditioning prompts (save_speaker / create_speaker).
@@ -156,10 +165,34 @@ class SmolTTS:
                           torch.from_numpy(codes[:, :, :n]).to(self.device))
         return _pcm_numpy(pcm)
 
+    def _own_stream_mimi(self) -> bool:
+        """Take the instance's B=1 vocoder state; False while another open
+        stream holds it."""
+        with self._stream_mimi_lock:
+            if self._stream_mimi_taken:
+                return False
+            self._stream_mimi_taken = True
+            return True
+
+    def _stream_mimi_state(self):
+        """The instance's B=1 vocoder state, reset in place."""
+        from smoltts_torch.codec.mimi import reset_stream_state
+
+        if self._stream_mimi is None:
+            self._stream_mimi = self._new_stream_mimi()
+            return self._stream_mimi
+        return reset_stream_state(self._stream_mimi)
+
+    def _new_stream_mimi(self):
+        from smoltts_torch.codec.mimi import decode_stream_init
+
+        kv8 = self.kv_dtype == torch.int8
+        return decode_stream_init(self.codec_config, batch=1,
+                                  kv_dtype=torch.int8 if kv8 else None, device=self.device)
+
     def stream(self, input: str, voice: Optional[str] = "heart") -> Iterator[np.ndarray]:
         """Yield 80 ms PCM chunks as frames decode. Every generated frame is
         vocoded, as in the reference."""
-        from smoltts_torch.codec.mimi import decode_stream_init
         from smoltts_torch.lm.decode import init_decode_state
         from smoltts_torch.lm.generate import pad_prompts
         from smoltts_torch.lm.pipeline import (
@@ -173,32 +206,37 @@ class SmolTTS:
             raise RuntimeError("no Mimi weights loaded; pass mimi_path")
         dev = self.device
         prompt = self._get_prompt(input, voice or "heart")
-        args = (self.config, self.token_config, self.generation_settings, self.codec_config)
-        prefill_step = make_prefill_step(*args, device=dev)
-        stream_step = make_stream_step(*args, device=dev)
-        kv8 = self.kv_dtype == torch.int8
-        state = init_decode_state(self.config, 1, self.config.max_seq_len, dtype=self.kv_dtype,
-                                  device=dev)
-        mstate = decode_stream_init(self.codec_config, batch=1,
-                                    kv_dtype=torch.int8 if kv8 else None, device=dev)
-        padded, lens = pad_prompts([prompt])
-        state, mstate, gen, out = prefill_step(self.params, self.codec_params, state, mstate,
-                                               torch.from_numpy(padded).to(dev),
-                                               torch.from_numpy(lens).to(dev), self.generator)
-        yield _pcm_to_host(out.pcm)
-        flush_step = make_flush_step(device=dev)
-        cadence = flush_cadence(state, mstate)
-        since_flush = 0
-        for _ in range(self.generation_settings.max_new_tokens - 1):
-            if bool(out.finished[0]):
-                break
-            if since_flush >= cadence:
-                state, mstate = flush_step(state, mstate)
-                since_flush = 0
-            state, mstate, gen, out = stream_step(self.params, self.codec_params, state, mstate,
-                                                  gen)
-            since_flush += 1
+        owned = self._own_stream_mimi()
+        try:
+            mstate = self._stream_mimi_state() if owned else self._new_stream_mimi()
+            args = (self.config, self.token_config, self.generation_settings, self.codec_config)
+            vocoder = self._vocoder if owned else None
+            prefill_step = make_prefill_step(*args, device=dev, vocoder=vocoder)
+            stream_step = make_stream_step(*args, device=dev, vocoder=vocoder)
+            state = init_decode_state(self.config, 1, self.config.max_seq_len,
+                                      dtype=self.kv_dtype, device=dev)
+            padded, lens = pad_prompts([prompt])
+            state, mstate, gen, out = prefill_step(self.params, self.codec_params, state, mstate,
+                                                   torch.from_numpy(padded).to(dev),
+                                                   torch.from_numpy(lens).to(dev), self.generator)
             yield _pcm_to_host(out.pcm)
+            flush_step = make_flush_step(device=dev)
+            cadence = flush_cadence(state, mstate)
+            since_flush = 0
+            for _ in range(self.generation_settings.max_new_tokens - 1):
+                if bool(out.finished[0]):
+                    break
+                if since_flush >= cadence:
+                    state, mstate = flush_step(state, mstate)
+                    since_flush = 0
+                state, mstate, gen, out = stream_step(self.params, self.codec_params, state,
+                                                      mstate, gen)
+                since_flush += 1
+                yield _pcm_to_host(out.pcm)
+        finally:
+            if owned:
+                with self._stream_mimi_lock:
+                    self._stream_mimi_taken = False
 
     def create_speaker(self, samples: List[dict], system_prompt: Optional[str] = None) -> np.ndarray:
         """A voice-cloning conditioning prompt from (text, audio) samples, by

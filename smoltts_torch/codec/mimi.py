@@ -316,6 +316,17 @@ def reset_stream_slots(state: MimiStreamState, slots: torch.Tensor) -> MimiStrea
     return state
 
 
+def reset_stream_state(state: MimiStreamState) -> MimiStreamState:
+    """Every slot of a streaming state back to `decode_stream_init`'s values,
+    in place (the ring tails and their write column too), so one state
+    serves stream after stream at the same addresses."""
+    t = state.transformer
+    reset_stream_slots(state, torch.arange(t.pos.shape[0], device=t.pos.device))
+    for a in (t.k_tail, t.v_tail, t.t_phase):
+        a.zero_()
+    return state
+
+
 def scatter_stream_state(big: MimiStreamState, small: MimiStreamState,
                          slots: torch.Tensor) -> MimiStreamState:
     """Write an n-slot streaming state into the given slots of a B-slot
@@ -342,14 +353,33 @@ def _leaves(tree) -> List[torch.Tensor]:
     return out
 
 
+def stream_state_leaves(state: MimiStreamState) -> List[torch.Tensor]:
+    """Every tensor of a streaming state, in a fixed order."""
+    return [state.upsample_tail, *(a for a in state.transformer if a is not None),
+            *_leaves(state.decoder)]
+
+
+def map_stream_state(fn, state: MimiStreamState) -> MimiStreamState:
+    """A streaming state of `fn(leaf)` for every leaf."""
+    return MimiStreamState(
+        upsample_tail=fn(state.upsample_tail),
+        transformer=TransformerRingState(*(None if a is None else fn(a)
+                                           for a in state.transformer)),
+        decoder=tree_map(fn, state.decoder),
+    )
+
+
 def flush_mimi_state(state: MimiStreamState) -> MimiStreamState:
-    """Consolidate the codec transformer's ring tail (in place)."""
+    """Consolidate the codec transformer's ring tail, in place (every leaf
+    keeps its storage)."""
     return state._replace(transformer=flush_transformer_ring(state.transformer))
 
 
 def mimi_decode_step(params: MimiParams, cfg: MimiConfig, state: MimiStreamState,
                      codes: torch.Tensor):
-    """codes [B, K, T_frames] -> (state', PCM [B, T_frames * 1920, 1])."""
+    """codes [B, K, T_frames] -> (state', PCM [B, T_frames * 1920, 1]). The
+    eager reference step: the ring tails are written in place, every other
+    leaf of `state'` is new (codec/graph.py steps a state wholly in place)."""
     emb = split_rvq_decode(codes, params["quantizer"], cfg)
     up_tail, emb = convtr_stream_step(
         state.upsample_tail, emb, params["upsample"]["w"], params["upsample"].get("b"),

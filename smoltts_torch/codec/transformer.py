@@ -61,8 +61,9 @@ def ring_state_init(cfg: MimiConfig, batch: int, dtype=torch.float32, tail_len: 
 
 
 def flush_transformer_ring(state: TransformerRingState) -> TransformerRingState:
-    """Scatter every valid tail entry into the ring (slot = abs_pos mod W),
-    in place, and reset the tail."""
+    """Scatter every valid tail entry into the ring (slot = abs_pos mod W)
+    and reset the tail, in place: every leaf keeps its storage, and the
+    state returned is the one given."""
     W = state.k.shape[2]
     b_idx, w_idx = (state.tail_abs >= 0).nonzero(as_tuple=True)
     absp = state.tail_abs[b_idx, w_idx]
@@ -77,19 +78,18 @@ def flush_transformer_ring(state: TransformerRingState) -> TransformerRingState:
     else:
         state.k[:, b_idx, slots] = state.k_tail[:, b_idx, w_idx].to(state.k.dtype)
         state.v[:, b_idx, slots] = state.v_tail[:, b_idx, w_idx].to(state.v.dtype)
-    slot_pos = state.slot_pos.clone()
-    slot_pos[b_idx, slots] = absp
-    return state._replace(
-        slot_pos=slot_pos,
-        tail_abs=torch.full_like(state.tail_abs, -1),
-        t_phase=torch.zeros_like(state.t_phase),
-    )
+    state.slot_pos[b_idx, slots] = absp
+    state.tail_abs.fill_(-1)
+    state.t_phase.zero_()
+    return state
 
 
 def _rope_half_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     """Split-half RoPE tables [..., head_dim] in f32."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(float(theta), device=positions.device), exponent)
+    # a fill, not a host-to-device copy, so a CUDA graph can capture it
+    base = torch.full((), float(theta), dtype=torch.float32, device=positions.device)
+    inv_freq = 1.0 / torch.pow(base, exponent)
     freqs = positions.float()[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)

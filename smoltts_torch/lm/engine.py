@@ -15,9 +15,13 @@ where the port differs:
 - Randomness is a `torch.Generator` on the engine's device, where the JAX
   engine splits its key: sampled streams match JAX in distribution only,
   greedy streams token for token.
+- The vocoder state is stepped in place and, on the card, as a replayed
+  CUDA graph (codec/graph.py `VocoderGraphs`): the engine's B-slot state
+  and one sub-state per admission size, reset in place before each
+  admission's first vocode, each keep their addresses for good.
 - `warm` runs every program once on a throwaway state of the engine's
   shapes, so the kernels are built and loaded and cuDNN has chosen its
-  algorithms before the first request.
+  algorithms before the first request, and captures the vocoder's graphs.
 - `shard` lays the engine over a `torch.distributed` mesh
   (parallel/serving.py) as a leader and followers: rank 0 runs the host
   logic below unchanged and broadcasts a small plan per dispatch (freed
@@ -114,6 +118,7 @@ class DecodeEngine:
         admit_sizes: Optional[List[int]] = None,
         device=None,
     ):
+        from smoltts_torch.codec.graph import VocoderGraphs
         from smoltts_torch.lm.pipeline import flush_cadence, make_flush_step
         from smoltts_torch.ops.quant import fuse_decode_params, fuse_mimi_decode_params
 
@@ -220,6 +225,10 @@ class DecodeEngine:
         self.mimi_params = None if mimi_params is None else fuse_mimi_decode_params(mimi_params)
         self.mimi_cfg = mimi_cfg
         self.mimi_state = None if mimi_params is None else self._fresh_mimi_state()
+        # The vocoder's graphs: the B-slot state's and one per admission size,
+        # over the sub-states each admission vocodes its first frames on.
+        self._vocoder = VocoderGraphs(max_graphs=len(self.admit_sizes) + 1)
+        self._admit_mimi: Dict[int, object] = {}
         self._stream_steps: Dict[int, callable] = {}
         self._chunk_steps: Dict[int, callable] = {}
         # Ring-tail flush cadence of the LM (and codec transformer) tails.
@@ -341,7 +350,7 @@ class DecodeEngine:
         if lim not in self._stream_steps:
             self._stream_steps[lim] = make_stream_step(
                 self.cfg, self.token_cfg, self.settings, self.mimi_cfg, attend_limit=lim,
-                device=self.device, mesh=self.mesh)
+                device=self.device, mesh=self.mesh, vocoder=self._vocoder)
         return self._stream_steps[lim]
 
     def _chunk_step(self, lim: int):
@@ -350,7 +359,7 @@ class DecodeEngine:
         if lim not in self._chunk_steps:
             self._chunk_steps[lim] = make_chunk_step(
                 self.cfg, self.token_cfg, self.settings, self.mimi_cfg, self.chunk_frames,
-                attend_limit=lim, device=self.device, mesh=self.mesh)
+                attend_limit=lim, device=self.device, mesh=self.mesh, vocoder=self._vocoder)
         return self._chunk_steps[lim]
 
     def _flush(self, state, mstate):
@@ -382,13 +391,11 @@ class DecodeEngine:
                generator):
         """Prefill n prompts into a fresh n-slot sub-state and scatter it into
         `slots` of `state` (in place), every field JAX's _admit_fn sets; with
-        the vocoder, vocode the first frames on a zero streaming state and
-        scatter it into `mstate`. Returns (state, first FrameOutput, PCM).
-        Sharded, every rank prefills and vocodes all n prompts and scatters
-        the rows of the slots it holds."""
-        from smoltts_torch.codec.mimi import (
-            decode_stream_init, mimi_decode_step, reset_stream_slots, scatter_stream_state,
-        )
+        the vocoder, vocode the first frames on the n-slot streaming
+        sub-state, reset to zero, and scatter it into `mstate`. Returns
+        (state, first FrameOutput, PCM). Sharded, every rank prefills and
+        vocodes all n prompts and scatters the rows of the slots it holds."""
+        from smoltts_torch.codec.mimi import reset_stream_slots, scatter_stream_state
         from smoltts_torch.parallel.serving import take_slots
 
         with SPANS.span("engine.admit"):
@@ -415,25 +422,39 @@ class DecodeEngine:
                     getattr(state, name).index_copy_(0, idx, getattr(mine, name))
             pcm = None
             if mstate is not None:
-                kv8 = mstate.transformer.k_scale is not None
-                msub = decode_stream_init(self.mimi_cfg, n, dtype=mstate.upsample_tail.dtype,
-                                          kv_dtype=torch.int8 if kv8 else None, device=self.device)
-                msub, pcm = mimi_decode_step(self.mimi_params, self.mimi_cfg, msub,
-                                             out.audio_codes[:, :, None])
+                msub = self._admit_mimi_state(n, mstate)
+                msub, pcm = self._vocoder(self.mimi_params, self.mimi_cfg, msub,
+                                          out.audio_codes[:, :, None])
                 pcm = self._emit_pcm(pcm)
                 if rows:
                     scatter_stream_state(mstate, msub if pick is None else take_slots(msub, pick),
                                          idx)
             return state, out, pcm
 
+    def _admit_mimi_state(self, n: int, like):
+        """The n-slot streaming sub-state of admissions of n, reset in place
+        to `decode_stream_init`'s values (made at the first)."""
+        from smoltts_torch.codec.mimi import decode_stream_init, reset_stream_state
+
+        msub = self._admit_mimi.get(n)
+        if msub is None:
+            kv8 = like.transformer.k_scale is not None
+            msub = self._admit_mimi[n] = decode_stream_init(
+                self.mimi_cfg, n, dtype=like.upsample_tail.dtype,
+                kv_dtype=torch.int8 if kv8 else None, device=self.device)
+            return msub
+        return reset_stream_state(msub)
+
     @torch.no_grad()
     def warm(self, prompt_len: Optional[int] = None, buckets: Optional[List[int]] = None,
              parallel: int = 0, progress=None) -> None:
         """Run every program a serving run can hit once: admission at each of
-        `admit_sizes` (with the admission vocode), the frame step (and the
-        chunk step) at each attend bucket, and the flush. They run on a
-        throwaway state of the engine's shapes; the engine's state is not
-        touched. `buckets` restricts the attend buckets (default all).
+        `admit_sizes` (with the admission vocode, whose graph it captures),
+        the LM frame at each attend bucket, and the flush, on a throwaway
+        state of the engine's shapes; then capture the vocoder step's graph
+        over the engine's streaming state, which a capture does not advance.
+        The engine's state is not touched. `buckets` restricts the attend
+        buckets (default all).
         `parallel` is accepted for the JAX signature: nothing here compiles
         concurrently. `progress` is an optional callable(str). Sharded, the
         leader's call runs it on every rank."""
@@ -452,12 +473,15 @@ class DecodeEngine:
             state, _, _ = self._admit(state, mstate, list(range(n)), prompt,
                                       np.full((n,), T, np.int32), gen)
             note(f"warm admit n={n}")
+        if mstate is not None:
+            codes = torch.zeros((mstate.upsample_tail.shape[0], self.cfg.num_codebooks, 1),
+                                dtype=torch.int32, device=self.device)
+            self._vocoder.capture(self.mimi_params, self.mimi_cfg, self.mimi_state, codes)
+            note("warm vocoder graph")
+        # The LM frame alone: a frame or chunk step would vocode the
+        # throwaway state, whose graph no serving step replays.
         for lim in buckets if buckets is not None else self.attend_buckets:
-            state, mstate, _, _ = self._advance(state, mstate, 1, lim, gen)
-            if mstate is not None and self.chunk_frames > 1:
-                state, mstate = self._flush(state, mstate)
-                state, mstate, _, _ = self._advance(state, mstate, self.chunk_frames, lim, gen)
-                note(f"warm chunk bucket={lim}")
+            state, _, _, _ = self._advance(state, None, 1, lim, gen)
             state, mstate = self._flush(state, mstate)
             note(f"warm step bucket={lim}")
         note("warm flush")

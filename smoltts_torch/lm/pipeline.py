@@ -7,7 +7,10 @@ throughput mode) and `make_flush_step` (consolidate the LM and codec ring
 tails) return plain
 callables with the JAX package's signatures: state in, state out, with the
 generator in the place of the PRNG key. Large buffers are updated in place
-(see lm/decode.py), so a state passed to a step must not be reused.
+(see lm/decode.py), so a state passed to a step must not be reused. The
+vocoder state is stepped wholly in place, by `vocoder` (codec/graph.py: a
+`VocoderGraphs`, which replays the step as a CUDA graph, or by default the
+eager `step_in_place`).
 
 Each call records its span (`step.prefill`, `step.stream`, `step.chunk`,
 `step.flush`; utils/profiling.py `SPANS`), and inside it each LM frame
@@ -22,7 +25,8 @@ import torch
 
 from smoltts_torch import resolve_device
 from smoltts_torch.codec.config import MimiConfig
-from smoltts_torch.codec.mimi import MimiStreamState, flush_mimi_state, mimi_decode_step
+from smoltts_torch.codec.graph import step_in_place
+from smoltts_torch.codec.mimi import MimiStreamState, flush_mimi_state
 from smoltts_torch.config import DualARConfig
 from smoltts_torch.lm.decode import DecodeState, decode_frame, flush_kv, prefill
 from smoltts_torch.lm.samplers import GenerationSettings
@@ -42,13 +46,15 @@ class StreamStepOutput(NamedTuple):
 
 def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
                      mimi_cfg: MimiConfig, attend_limit: Optional[int] = None, device=None,
-                     mesh=None):
+                     mesh=None, vocoder=None):
     """(lm_params, mimi_params, state, mimi_state, generator) ->
     (state', mimi_state', generator, StreamStepOutput). `attend_limit`
     bounds slow-trunk attention reads (length bucketing). `mesh`: the
     parallel/mesh.py mesh of trees laid out by parallel/serving.py (each
-    rank steps its own slots); None for whole trees."""
+    rank steps its own slots); None for whole trees. `vocoder`: the
+    vocoder step (module docstring)."""
     resolve_device(device)
+    vocode = step_in_place if vocoder is None else vocoder
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
@@ -57,8 +63,8 @@ def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Genera
                 state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
                                           attend_limit=attend_limit, mesh=mesh)
             with SPANS.span("codec.step"):
-                mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
-                                                   out.audio_codes[:, :, None])
+                mimi_state, pcm = vocode(mimi_params, mimi_cfg, mimi_state,
+                                         out.audio_codes[:, :, None])
             return state, mimi_state, generator, StreamStepOutput(
                 pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio,
                 finished=out.finished, slow_token=out.slow_token,
@@ -68,11 +74,13 @@ def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Genera
 
 
 def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
-                      mimi_cfg: MimiConfig, device=None, mesh=None):
+                      mimi_cfg: MimiConfig, device=None, mesh=None, vocoder=None):
     """(lm_params, mimi_params, state, mimi_state, prompt, prompt_len,
     generator) -> (state', mimi_state', generator, StreamStepOutput). On a
-    `mesh` the prompt and lengths are this rank's slots'."""
+    `mesh` the prompt and lengths are this rank's slots'. `vocoder` as in
+    `make_stream_step`."""
     resolve_device(device)
+    vocode = step_in_place if vocoder is None else vocoder
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state, mimi_state, prompt, prompt_len, generator):
@@ -81,8 +89,8 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
                 state, out = prefill(lm_params, cfg, token_cfg, settings, state, prompt,
                                      prompt_len, generator, mesh=mesh)
             with SPANS.span("codec.step"):
-                mimi_state, pcm = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
-                                                   out.audio_codes[:, :, None])
+                mimi_state, pcm = vocode(mimi_params, mimi_cfg, mimi_state,
+                                         out.audio_codes[:, :, None])
             return state, mimi_state, generator, StreamStepOutput(
                 pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio,
                 finished=out.finished, slow_token=out.slow_token,
@@ -93,14 +101,17 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
 
 def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
                     mimi_cfg: MimiConfig, frames_per_chunk: int,
-                    attend_limit: Optional[int] = None, device=None, mesh=None):
+                    attend_limit: Optional[int] = None, device=None, mesh=None,
+                    vocoder=None):
     """(lm_params, mimi_params, state, mimi_state, generator) ->
     (state', mimi_state', generator, StreamStepOutput) over K =
     `frames_per_chunk` frames: PCM [B, K * 1920, 1], codes [B, ncb, K],
     is_audio, slow tokens and finished flags [B, K]. With `attend_limit` the
     caller guarantees max(pos) + K <= attend_limit, and flushes between calls
-    so the K frames fit the tails. `mesh` as in `make_stream_step`."""
+    so the K frames fit the tails. `mesh` and `vocoder` as in
+    `make_stream_step`."""
     resolve_device(device)
+    vocode = step_in_place if vocoder is None else vocoder
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
@@ -111,8 +122,8 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
                     state, out = decode_frame(lm_params, cfg, token_cfg, settings, state,
                                               generator, attend_limit=attend_limit, mesh=mesh)
                 with SPANS.span("codec.step"):
-                    mimi_state, p = mimi_decode_step(mimi_params, mimi_cfg, mimi_state,
-                                                     out.audio_codes[:, :, None])
+                    mimi_state, p = vocode(mimi_params, mimi_cfg, mimi_state,
+                                           out.audio_codes[:, :, None])
                 pcm.append(p)
                 codes.append(out.audio_codes)
                 is_audio.append(out.is_audio)

@@ -473,9 +473,13 @@ def test_warm_leaves_the_engine_state_alone():
     eng = engine(cfg, tok, params, GenerationSettings(**GREEDY), mimi_params=mimi, mimi_cfg=mcfg,
                  chunk_frames=2, attend_buckets=[16, 32])
     before = [t.clone() for t in eng.state if t is not None]
+    before_m = [t.clone() for t in tm.stream_state_leaves(eng.mimi_state)]
     eng.warm(progress=lambda s: None)
     after = [t for t in eng.state if t is not None]
     assert all(torch.equal(a, b) for a, b in zip(before, after))
+    after_m = tm.stream_state_leaves(eng.mimi_state)
+    assert len(after_m) == len(before_m)
+    assert all(torch.equal(a, b) for a, b in zip(before_m, after_m))
     assert eng.stats["dispatches"] == 0 and not eng.has_work()
 
 

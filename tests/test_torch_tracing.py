@@ -287,6 +287,45 @@ def test_stream_records_one_pcm_wait_per_chunk(tmp_path):
     assert all(w[1] >= s[2] for w, s in zip(waits, steps))
 
 
+# ---- the vocoder's graphs ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("graphs", ["stand-in", "cpu"])
+def test_vocoder_captures_and_replays_nest_in_its_steps(graphs):
+    """A graph's capture and its replays lie inside the `codec.step` that
+    made them (the stand-in: a graph whose replay is the eager step); on the
+    CPU the steps are eager and record neither."""
+    from smoltts_torch.codec.graph import VocoderGraphs
+    from tests.test_torch_vocoder_graph import StandInGraphs
+
+    cfg, tok, params, mcfg, mimi = setup()
+    settings = GenerationSettings(**GREEDY, max_new_tokens=16)
+    vocoder = StandInGraphs() if graphs == "stand-in" else VocoderGraphs()
+    state = init_decode_state(cfg, 2, 64, dtype=torch.float32, device="cpu")
+    ms = tm.decode_stream_init(mcfg, 2, device="cpu")
+    padded, lens = pad_prompts([audio_prompt(cfg, tok, 6, s) for s in range(2)],
+                               pad_to_multiple=8)
+    t0 = time.perf_counter()
+    state, ms, _, _ = make_prefill_step(cfg, tok, settings, mcfg, device="cpu", vocoder=vocoder)(
+        params, mimi, state, ms, torch.from_numpy(padded), torch.from_numpy(lens), None)
+    for step in (make_stream_step(cfg, tok, settings, mcfg, device="cpu", vocoder=vocoder),
+                 make_chunk_step(cfg, tok, settings, mcfg, 2, device="cpu", vocoder=vocoder)):
+        state, ms, _, _ = step(params, mimi, state, ms, None)
+    mine = threading.get_ident()
+    got = [s for s in spans_since(t0, {"codec.step", "codec.replay", "codec.capture"})
+           if s[3] == mine]
+    steps = [s for s in got if s[0] == "codec.step"]
+    replays = [s for s in got if s[0] == "codec.replay"]
+    captures = [s for s in got if s[0] == "codec.capture"]
+    assert len(steps) == 4
+    if graphs == "cpu":
+        assert not replays and not captures
+        return
+    assert len(replays) == 4 and len(captures) == 1
+    assert all(sum(inside(r, s) for s in steps) == 1 for r in replays + captures)
+    assert inside(captures[0], steps[0]) and captures[0][2] <= replays[0][1]
+
+
 # ---- the recorder changes nothing it records ------------------------------------
 
 
