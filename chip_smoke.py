@@ -132,6 +132,17 @@ Phases:
      (bit-equal expected; any difference printed with its size), the
      captures and replays counted, and host ms per step eager against
      replayed
+  16 the LM frame replayed as a CUDA graph (lm/graph.py LMFrameGraphs)
+     against the eager in-place frame: 70M int8+kv8 at B=1 over the whole
+     cache (the library's stream) and 150M int8+kv8 at B=64, S=1024, at
+     each of closed64's attend buckets 256/512/1024; greedy, then sampled
+     (0.7 / 0.7 / min-p 0.05) with both sides' generators from one seed;
+     64 frames after a ChatML prefill, a tail of 16 (flushes at the
+     cadence), a slot freed at frame 20 and an admission prefilled and
+     scattered in at 40; tokens, codes, slow tokens, flags and every state
+     leaf compared each frame (bit-equal required), launch counts of a
+     replay == an eager frame's, host ms per frame eager against replayed
+     and the capture's ms; at B=64 the device ops a frame each way
 
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any failed
@@ -3999,6 +4010,165 @@ class Smoke:
                 log(f"[15 graph] {name}: ops whose count differs (graph - eager, 5 steps): "
                     f"{[(k[:70], counts['graph'][k] - counts['eager'][k]) for k, _ in moved.most_common(12)]}")
 
+    def phase16_lm_graph(self):
+        from smoltts_torch import ops
+        from smoltts_torch.config import smoltts_byte_70m
+        from smoltts_torch.lm.decode import init_decode_state, prefill
+        from smoltts_torch.lm.graph import LMFrameGraphs, frame_in_place, map_decode_state
+        from smoltts_torch.lm.pipeline import flush_cadence, make_flush_step
+        from smoltts_torch.lm.samplers import GenerationSettings
+        from smoltts_torch.models.dual_ar import init_params
+        from smoltts_torch.ops import attention as A
+        from smoltts_torch.ops.quant import fuse_decode_params, quantize_decode_params
+        from smoltts_torch.utils.profiling import SPANS
+
+        torch, dev, smi = self.torch, self.dev, nvidia_smi()
+        cfg150, p150, _, _ = self.lm()
+        cfg70 = smoltts_byte_70m().replace(dropout=0.0, use_gradient_checkpointing=False)
+        p70 = quantize_decode_params(fuse_decode_params(init_params(
+            cfg70, torch.Generator().manual_seed(1), dtype=torch.bfloat16, device=dev)))
+        cases = [("70M B=1", cfg70, p70, 1, cfg70.max_seq_len, [None]),
+                 ("150M B=64", cfg150, p150, 64, 1024, [256, 512, 1024])]
+        modes = [("greedy", GenerationSettings(default_temp=0.0, default_fast_temp=0.0)),
+                 ("sampled", GenerationSettings(default_temp=0.7, default_fast_temp=0.7,
+                                                min_p=0.05))]
+        frames, tail = 64, 16
+        flush = make_flush_step(device=dev)
+        clone = lambda st: map_decode_state(torch.clone, st)  # noqa: E731
+
+        def differs(a, b):
+            return 0 if torch.equal(a, b) else int((a != b).sum())
+
+        def admit(states, sub, slots):  # DecodeEngine._admit's scatter
+            idx = torch.tensor(slots, device=dev)
+            for st in states:
+                for big, small in ((st.k, sub.k), (st.v, sub.v), (st.k_scale, sub.k_scale),
+                                   (st.v_scale, sub.v_scale)):
+                    big.index_copy_(1, idx, small)
+                st.tail_pos.index_fill_(0, idx, -1)
+                for name in ("flushed", "pos", "prev_tokens", "finished"):
+                    getattr(st, name).index_copy_(0, idx, getattr(sub, name))
+
+        for name, cfg, params, B, S, buckets in cases:
+            token_cfg, prompt, lens = self._prompts(cfg, B, 64)
+            slots = [0] if B == 1 else [5, 40]
+            sub_p, sub_l = self._prompts(cfg, len(slots), 64)[1:]
+            for mode, settings in modes:
+                graphs = LMFrameGraphs(max_graphs=len(buckets))
+                for lim in buckets:
+                    pre = torch.Generator(device=dev).manual_seed(11)
+                    eager = init_decode_state(cfg, B, S, dtype=torch.int8, tail_len=tail,
+                                              device=dev)
+                    with torch.no_grad():
+                        eager, _ = prefill(params, cfg, token_cfg, settings, eager,
+                                           torch.from_numpy(prompt).to(dev),
+                                           torch.from_numpy(lens).to(dev), pre)
+                        sub = init_decode_state(cfg, len(slots), S, dtype=torch.int8,
+                                                tail_len=tail, device=dev)
+                        sub, _ = prefill(params, cfg, token_cfg, settings, sub,
+                                         torch.from_numpy(sub_p).to(dev),
+                                         torch.from_numpy(sub_l).to(dev), pre)
+                    graphed = clone(eager)
+                    gen_e = torch.Generator(device=dev).manual_seed(7)
+                    gen_g = torch.Generator(device=dev).manual_seed(7)
+                    cadence, since = flush_cadence(eager, None), 0
+                    host = {"eager": [], "graph": []}
+                    worst, t_mark = {"out": 0, "state": 0}, time.perf_counter()
+                    for f in range(frames):
+                        if since >= cadence:
+                            (eager, _), (graphed, _), since = (flush(eager, None),
+                                                               flush(graphed, None), 0)
+                        if f == 20:  # a stream ends: its slot is marked finished
+                            for st in (eager, graphed):
+                                st.finished.index_fill_(0, torch.tensor(slots[:1], device=dev),
+                                                        True)
+                        if f == 40:  # an admission scattered into the slots
+                            admit((eager, graphed), sub, slots)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        with torch.no_grad():
+                            _, want = frame_in_place(params, cfg, token_cfg, settings, eager,
+                                                     gen_e, attend_limit=lim)
+                        t1 = time.perf_counter()
+                        torch.cuda.synchronize()
+                        t2 = time.perf_counter()
+                        _, got = graphs(params, cfg, token_cfg, settings, graphed, gen_g,
+                                        attend_limit=lim)
+                        t3 = time.perf_counter()
+                        torch.cuda.synchronize()
+                        since += 1
+                        host["eager"].append((t1 - t0) * 1e3)
+                        if f:
+                            host["graph"].append((t3 - t2) * 1e3)
+                        else:  # the first call captures
+                            host["capture"] = (t3 - t2) * 1e3
+                        for field in got._fields:
+                            n = differs(getattr(got, field), getattr(want, field))
+                            if n:
+                                log(f"[16 graph] {name} {mode} lim {lim} frame {f}: {field} "
+                                    f"differs in {n} elements")
+                                worst["out"] = max(worst["out"], n)
+                        for field, a, b in zip(eager._fields, graphed, eager):
+                            n = 0 if a is None else differs(a, b)
+                            if n:
+                                log(f"[16 graph] {name} {mode} lim {lim} frame {f}: state "
+                                    f"{field} differs in {n} elements")
+                                worst["state"] = max(worst["state"], n)
+                    spans = [sp[0] for sp in SPANS.snapshot() if sp[1] >= t_mark]
+                    captures, replays = spans.count("lm.capture"), spans.count("lm.replay")
+                    # an eager frame's launches against a replay's
+                    counts = {}
+                    for side, fn in (("eager", lambda: frame_in_place(
+                            params, cfg, token_cfg, settings, eager, gen_e, attend_limit=lim)),
+                                     ("graph", lambda: graphs(params, cfg, token_cfg, settings,
+                                                              graphed, gen_g, attend_limit=lim))):
+                        reset_counts()
+                        with torch.no_grad():
+                            fn()
+                        counts[side] = (dict(ops.LAUNCHES), dict(A.ROUTE_LAUNCHES))
+                    torch.cuda.synchronize()
+                    log(f"[16 graph] {name} int8+kv8 {mode}, S={S} lim {lim}, {frames} frames "
+                        f"(tail {tail}, flush every {cadence}, a slot freed at 20, an admission "
+                        f"at 40) on {smi}: outputs bit-equal {worst['out'] == 0}, state "
+                        f"bit-equal {worst['state'] == 0}; {captures} capture, {replays} "
+                        f"replays; host ms a frame median eager "
+                        f"{float(np.median(host['eager']))}, replayed "
+                        f"{float(np.median(host['graph']))}; the first call (capture and "
+                        f"replay) {host['capture']} ms; launches a frame {counts['eager']} "
+                        f"eager, {counts['graph']} replayed")
+                    check(worst["out"] == 0 and worst["state"] == 0,
+                          f"{name} {mode} lim {lim}: replay differs from eager {worst}")
+                    check(captures == 1 and replays == frames,
+                          f"{name} {mode} lim {lim}: {captures} captures, {replays} replays")
+                    check(counts["eager"] == counts["graph"],
+                          f"{name} {mode} lim {lim}: launch counts {counts}")
+                    if B == 64 and mode == "greedy" and lim == 256:
+                        self._lm_graph_ops(name, lambda: frame_in_place(
+                            params, cfg, token_cfg, settings, eager, gen_e, attend_limit=lim),
+                            lambda: graphs(params, cfg, token_cfg, settings, graphed, gen_g,
+                                           attend_limit=lim))
+
+    def _lm_graph_ops(self, name, eager, graphed):
+        """The device ops a frame launches and its busy ms, eager against
+        replayed (a diagnostic: the profiler's absence fails nothing)."""
+        counts = {}
+        with self.torch.no_grad():
+            for side, fn in (("eager", eager), ("graph", graphed)):
+                try:
+                    ev = trace_events(_profile(fn, iters=5, warmup=1))
+                except Exception as e:
+                    log(f"[16 graph] {name}: profiler not measured ({e!r})")
+                    return
+                ops = [e["name"] for e in ev
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+                counts[side] = Counter(ops)
+                log(f"[16 graph] {name} {side}: {len(ops) / 5} device ops a frame, "
+                    f"{busy_us(kernel_intervals(ev)) / 5 / 1e3} ms busy a frame (profiler, 5 "
+                    f"frames)")
+        moved = (counts["graph"] - counts["eager"]) + (counts["eager"] - counts["graph"])
+        log(f"[16 graph] {name}: ops whose count differs (graph - eager, 5 frames): "
+            f"{[(k[:70], counts['graph'][k] - counts['eager'][k]) for k, _ in moved.most_common(12)]}")
+
     def run(self, phases=None):
         table = [
             (1, self.phase1_build), (2, self.phase2_attention), (3, self.phase3_fast_loop),
@@ -4007,6 +4177,7 @@ class Smoke:
             (10, self.phase10_gates), (11, self.phase11_training),
             (12, self.phase12_data_pipeline), (13, self.phase13_parallel),
             (14, self.phase14_parallel_training), (15, self.phase15_vocoder_graph),
+            (16, self.phase16_lm_graph),
         ]
         for num, fn in table:
             if phases is not None and num != 1 and num not in phases:

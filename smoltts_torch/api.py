@@ -65,6 +65,7 @@ class SmolTTS:
         from smoltts_torch.codec.graph import VocoderGraphs
         from smoltts_torch.codec.mimi import load_mimi
         from smoltts_torch.io.checkpoint import load_params
+        from smoltts_torch.lm.graph import LMFrameGraphs
         from smoltts_torch.lm.prompt import PromptEncoder
         from smoltts_torch.lm.samplers import GenerationSettings
         from smoltts_torch.ops.quant import (
@@ -102,13 +103,15 @@ class SmolTTS:
 
         self.sampling_rate = self.codec_config.sampling_rate
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        # stream()'s B=1 vocoder state, reset in place for each stream and
-        # replayed as a CUDA graph; a stream() that finds it taken by another
-        # open stream steps a state of its own eagerly.
+        # stream()'s B=1 vocoder and LM states, reset in place for each
+        # stream and replayed as CUDA graphs; a stream() that finds them
+        # taken by another open stream steps states of its own eagerly.
         self._vocoder = VocoderGraphs(max_graphs=1)
+        self._lm_frame = LMFrameGraphs(max_graphs=1)
         self._stream_mimi = None  # made at the first stream()
-        self._stream_mimi_lock = threading.Lock()
-        self._stream_mimi_taken = False
+        self._stream_lm = None
+        self._stream_states_lock = threading.Lock()
+        self._stream_states_taken = False
 
         # voices.json maps names to speaker ids; speakers/<name>.npy holds
         # saved conditioning prompts (save_speaker / create_speaker).
@@ -165,13 +168,13 @@ class SmolTTS:
                           torch.from_numpy(codes[:, :, :n]).to(self.device))
         return _pcm_numpy(pcm)
 
-    def _own_stream_mimi(self) -> bool:
-        """Take the instance's B=1 vocoder state; False while another open
-        stream holds it."""
-        with self._stream_mimi_lock:
-            if self._stream_mimi_taken:
+    def _own_stream_states(self) -> bool:
+        """Take the instance's B=1 vocoder and LM states; False while another
+        open stream holds them."""
+        with self._stream_states_lock:
+            if self._stream_states_taken:
                 return False
-            self._stream_mimi_taken = True
+            self._stream_states_taken = True
             return True
 
     def _stream_mimi_state(self):
@@ -183,6 +186,21 @@ class SmolTTS:
             return self._stream_mimi
         return reset_stream_state(self._stream_mimi)
 
+    def _stream_lm_state(self):
+        """The instance's B=1 LM decode state, reset in place."""
+        from smoltts_torch.lm.decode import reset_decode_state
+
+        if self._stream_lm is None:
+            self._stream_lm = self._new_stream_lm()
+            return self._stream_lm
+        return reset_decode_state(self._stream_lm)
+
+    def _new_stream_lm(self):
+        from smoltts_torch.lm.decode import init_decode_state
+
+        return init_decode_state(self.config, 1, self.config.max_seq_len, dtype=self.kv_dtype,
+                                 device=self.device)
+
     def _new_stream_mimi(self):
         from smoltts_torch.codec.mimi import decode_stream_init
 
@@ -193,8 +211,8 @@ class SmolTTS:
     def stream(self, input: str, voice: Optional[str] = "heart") -> Iterator[np.ndarray]:
         """Yield 80 ms PCM chunks as frames decode. Every generated frame is
         vocoded, as in the reference."""
-        from smoltts_torch.lm.decode import init_decode_state
         from smoltts_torch.lm.generate import pad_prompts
+        from smoltts_torch.lm.graph import keep_in_place
         from smoltts_torch.lm.pipeline import (
             flush_cadence,
             make_flush_step,
@@ -206,19 +224,20 @@ class SmolTTS:
             raise RuntimeError("no Mimi weights loaded; pass mimi_path")
         dev = self.device
         prompt = self._get_prompt(input, voice or "heart")
-        owned = self._own_stream_mimi()
+        owned = self._own_stream_states()
         try:
             mstate = self._stream_mimi_state() if owned else self._new_stream_mimi()
+            lm = self._stream_lm_state() if owned else self._new_stream_lm()
             args = (self.config, self.token_config, self.generation_settings, self.codec_config)
             vocoder = self._vocoder if owned else None
             prefill_step = make_prefill_step(*args, device=dev, vocoder=vocoder)
-            stream_step = make_stream_step(*args, device=dev, vocoder=vocoder)
-            state = init_decode_state(self.config, 1, self.config.max_seq_len,
-                                      dtype=self.kv_dtype, device=dev)
+            stream_step = make_stream_step(*args, device=dev, vocoder=vocoder,
+                                           lm_frame=self._lm_frame if owned else None)
             padded, lens = pad_prompts([prompt])
-            state, mstate, gen, out = prefill_step(self.params, self.codec_params, state, mstate,
+            state, mstate, gen, out = prefill_step(self.params, self.codec_params, lm, mstate,
                                                    torch.from_numpy(padded).to(dev),
                                                    torch.from_numpy(lens).to(dev), self.generator)
+            state = keep_in_place(lm, state)  # the prefill renews the small leaves
             yield _pcm_to_host(out.pcm)
             flush_step = make_flush_step(device=dev)
             cadence = flush_cadence(state, mstate)
@@ -235,8 +254,8 @@ class SmolTTS:
                 yield _pcm_to_host(out.pcm)
         finally:
             if owned:
-                with self._stream_mimi_lock:
-                    self._stream_mimi_taken = False
+                with self._stream_states_lock:
+                    self._stream_states_taken = False
 
     def create_speaker(self, samples: List[dict], system_prompt: Optional[str] = None) -> np.ndarray:
         """A voice-cloning conditioning prompt from (text, audio) samples, by

@@ -4,8 +4,9 @@ The KV cache is split into a large HISTORY (`k`/`v`, int8 with per-vector
 scales in kv8 mode) and a small ring TAIL (`k_tail`/`v_tail`) that the frame
 step writes at a shared column `phase`; `flush_kv` consolidates the tail into
 the history at most every W frames. Unlike the JAX package, the port writes
-the tail and, at flush, the history IN PLACE: the state passed to a step is
-consumed and the returned state shares its large buffers.
+the tail and, at flush, the whole state IN PLACE: the state passed to a
+step is consumed and the returned state shares its large buffers
+(lm/graph.py steps every leaf in place, for a CUDA graph).
 
 Per frame, the slow trunk runs the decode-attention kernel in every layer
 (ops/attention.py), the slow-token site (window, sampling, finished rows)
@@ -106,11 +107,25 @@ def init_decode_state(
     )
 
 
+def reset_decode_state(state: DecodeState) -> DecodeState:
+    """Every slot back to `init_decode_state`'s values, in place; returns
+    `state`."""
+    for t in (state.k, state.v, state.k_tail, state.v_tail, state.flushed, state.phase,
+              state.pos, state.prev_tokens, state.finished):
+        t.zero_()
+    state.tail_pos.fill_(-1)
+    for t in (state.k_scale, state.v_scale):
+        if t is not None:
+            t.fill_(1.0)
+    return state
+
+
 def flush_kv(state: DecodeState) -> DecodeState:
     """Scatter every valid tail entry to its cache position (quantizing in
-    kv8 mode) and reset the ring. Writes the history in place. An entry whose
-    position is S or more is dropped, as the JAX package's scatter drops it
-    (a freed engine slot keeps advancing past S)."""
+    kv8 mode) and reset the ring, all in place: the returned state holds
+    `state`'s own tensors. An entry whose position is S or more is dropped,
+    as the JAX package's scatter drops it (a freed engine slot keeps
+    advancing past S)."""
     S = state.k.shape[3]
     valid = (
         (state.tail_pos >= 0)
@@ -130,11 +145,10 @@ def flush_kv(state: DecodeState) -> DecodeState:
     else:
         state.k[:, b_idx, :, dst] = state.k_tail[:, b_idx, :, w_idx].to(state.k.dtype)
         state.v[:, b_idx, :, dst] = state.v_tail[:, b_idx, :, w_idx].to(state.v.dtype)
-    return state._replace(
-        tail_pos=torch.full_like(state.tail_pos, -1),
-        flushed=state.pos.clone(),
-        phase=torch.zeros_like(state.phase),
-    )
+    state.tail_pos.fill_(-1)
+    state.flushed.copy_(state.pos)
+    state.phase.zero_()
+    return state
 
 
 def _write_kv(cache, new, pos, scale_cache=None):

@@ -19,9 +19,14 @@ where the port differs:
   CUDA graph (codec/graph.py `VocoderGraphs`): the engine's B-slot state
   and one sub-state per admission size, reset in place before each
   admission's first vocode, each keep their addresses for good.
+- With the vocoder, the LM state is stepped in place too and, on the card
+  without a mesh, the LM frame replays a CUDA graph per attend bucket
+  (lm/graph.py `LMFrameGraphs`): admissions, freed slots and flushes write
+  into the engine's state, which keeps its addresses for good.
 - `warm` runs every program once on a throwaway state of the engine's
   shapes, so the kernels are built and loaded and cuDNN has chosen its
-  algorithms before the first request, and captures the vocoder's graphs.
+  algorithms before the first request, and captures the vocoder's graphs
+  and the LM frame's.
 - `shard` lays the engine over a `torch.distributed` mesh
   (parallel/serving.py) as a leader and followers: rank 0 runs the host
   logic below unchanged and broadcasts a small plan per dispatch (freed
@@ -119,6 +124,7 @@ class DecodeEngine:
         device=None,
     ):
         from smoltts_torch.codec.graph import VocoderGraphs
+        from smoltts_torch.lm.graph import LMFrameGraphs
         from smoltts_torch.lm.pipeline import flush_cadence, make_flush_step
         from smoltts_torch.ops.quant import fuse_decode_params, fuse_mimi_decode_params
 
@@ -229,6 +235,8 @@ class DecodeEngine:
         # over the sub-states each admission vocodes its first frames on.
         self._vocoder = VocoderGraphs(max_graphs=len(self.admit_sizes) + 1)
         self._admit_mimi: Dict[int, object] = {}
+        # The LM frame's graphs over the engine's state, one per attend bucket.
+        self._lm_frame = LMFrameGraphs(max_graphs=len(self.attend_buckets))
         self._stream_steps: Dict[int, callable] = {}
         self._chunk_steps: Dict[int, callable] = {}
         # Ring-tail flush cadence of the LM (and codec transformer) tails.
@@ -350,7 +358,8 @@ class DecodeEngine:
         if lim not in self._stream_steps:
             self._stream_steps[lim] = make_stream_step(
                 self.cfg, self.token_cfg, self.settings, self.mimi_cfg, attend_limit=lim,
-                device=self.device, mesh=self.mesh, vocoder=self._vocoder)
+                device=self.device, mesh=self.mesh, vocoder=self._vocoder,
+                lm_frame=self._lm_frame)
         return self._stream_steps[lim]
 
     def _chunk_step(self, lim: int):
@@ -359,7 +368,8 @@ class DecodeEngine:
         if lim not in self._chunk_steps:
             self._chunk_steps[lim] = make_chunk_step(
                 self.cfg, self.token_cfg, self.settings, self.mimi_cfg, self.chunk_frames,
-                attend_limit=lim, device=self.device, mesh=self.mesh, vocoder=self._vocoder)
+                attend_limit=lim, device=self.device, mesh=self.mesh, vocoder=self._vocoder,
+                lm_frame=self._lm_frame)
         return self._chunk_steps[lim]
 
     def _flush(self, state, mstate):
@@ -452,9 +462,10 @@ class DecodeEngine:
         `admit_sizes` (with the admission vocode, whose graph it captures),
         the LM frame at each attend bucket, and the flush, on a throwaway
         state of the engine's shapes; then capture the vocoder step's graph
-        over the engine's streaming state, which a capture does not advance.
-        The engine's state is not touched. `buckets` restricts the attend
-        buckets (default all).
+        over the engine's streaming state and, with the vocoder, the LM
+        frame's graph at each attend bucket over the engine's state, which a
+        capture does not advance. The engine's state is not touched.
+        `buckets` restricts the attend buckets (default all).
         `parallel` is accepted for the JAX signature: nothing here compiles
         concurrently. `progress` is an optional callable(str). Sharded, the
         leader's call runs it on every rank."""
@@ -484,6 +495,10 @@ class DecodeEngine:
             state, _, _, _ = self._advance(state, None, 1, lim, gen)
             state, mstate = self._flush(state, mstate)
             note(f"warm step bucket={lim}")
+            if mstate is not None:
+                self._lm_frame.capture(self.params, self.cfg, self.token_cfg, self.settings,
+                                       self.state, attend_limit=lim, mesh=self.mesh)
+                note(f"warm LM frame graph bucket={lim}")
         note("warm flush")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -8,9 +8,12 @@ tails) return plain
 callables with the JAX package's signatures: state in, state out, with the
 generator in the place of the PRNG key. Large buffers are updated in place
 (see lm/decode.py), so a state passed to a step must not be reused. The
-vocoder state is stepped wholly in place, by `vocoder` (codec/graph.py: a
-`VocoderGraphs`, which replays the step as a CUDA graph, or by default the
-eager `step_in_place`).
+stream and chunk steps step the LM state wholly in place, by `lm_frame`
+(lm/graph.py: an `LMFrameGraphs`, which replays the frame as a CUDA graph,
+or by default the eager `frame_in_place` over this module's
+`decode_frame`), and every step steps the vocoder state wholly in place,
+by `vocoder` (codec/graph.py: a `VocoderGraphs`, which replays the step as
+a CUDA graph, or by default the eager `step_in_place`).
 
 Each call records its span (`step.prefill`, `step.stream`, `step.chunk`,
 `step.flush`; utils/profiling.py `SPANS`), and inside it each LM frame
@@ -29,6 +32,7 @@ from smoltts_torch.codec.graph import step_in_place
 from smoltts_torch.codec.mimi import MimiStreamState, flush_mimi_state
 from smoltts_torch.config import DualARConfig
 from smoltts_torch.lm.decode import DecodeState, decode_frame, flush_kv, prefill
+from smoltts_torch.lm.graph import frame_in_place
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.tokenizer import TokenConfig
 from smoltts_torch.utils.profiling import SPANS
@@ -46,22 +50,23 @@ class StreamStepOutput(NamedTuple):
 
 def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
                      mimi_cfg: MimiConfig, attend_limit: Optional[int] = None, device=None,
-                     mesh=None, vocoder=None):
+                     mesh=None, vocoder=None, lm_frame=None):
     """(lm_params, mimi_params, state, mimi_state, generator) ->
     (state', mimi_state', generator, StreamStepOutput). `attend_limit`
     bounds slow-trunk attention reads (length bucketing). `mesh`: the
     parallel/mesh.py mesh of trees laid out by parallel/serving.py (each
-    rank steps its own slots); None for whole trees. `vocoder`: the
-    vocoder step (module docstring)."""
+    rank steps its own slots); None for whole trees. `vocoder` and
+    `lm_frame`: the vocoder step and the LM frame (module docstring)."""
     resolve_device(device)
     vocode = step_in_place if vocoder is None else vocoder
+    advance = frame_in_place if lm_frame is None else lm_frame
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
         with SPANS.span("step.stream"):
             with SPANS.span("lm.frame"):
-                state, out = decode_frame(lm_params, cfg, token_cfg, settings, state, generator,
-                                          attend_limit=attend_limit, mesh=mesh)
+                state, out = advance(lm_params, cfg, token_cfg, settings, state, generator,
+                                     attend_limit=attend_limit, mesh=mesh, frame=decode_frame)
             with SPANS.span("codec.step"):
                 mimi_state, pcm = vocode(mimi_params, mimi_cfg, mimi_state,
                                          out.audio_codes[:, :, None])
@@ -102,16 +107,17 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
 def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
                     mimi_cfg: MimiConfig, frames_per_chunk: int,
                     attend_limit: Optional[int] = None, device=None, mesh=None,
-                    vocoder=None):
+                    vocoder=None, lm_frame=None):
     """(lm_params, mimi_params, state, mimi_state, generator) ->
     (state', mimi_state', generator, StreamStepOutput) over K =
     `frames_per_chunk` frames: PCM [B, K * 1920, 1], codes [B, ncb, K],
     is_audio, slow tokens and finished flags [B, K]. With `attend_limit` the
     caller guarantees max(pos) + K <= attend_limit, and flushes between calls
-    so the K frames fit the tails. `mesh` and `vocoder` as in
+    so the K frames fit the tails. `mesh`, `vocoder` and `lm_frame` as in
     `make_stream_step`."""
     resolve_device(device)
     vocode = step_in_place if vocoder is None else vocoder
+    advance = frame_in_place if lm_frame is None else lm_frame
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
@@ -119,8 +125,9 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
             pcm, codes, is_audio, slow, finished = [], [], [], [], []
             for _ in range(frames_per_chunk):
                 with SPANS.span("lm.frame"):
-                    state, out = decode_frame(lm_params, cfg, token_cfg, settings, state,
-                                              generator, attend_limit=attend_limit, mesh=mesh)
+                    state, out = advance(lm_params, cfg, token_cfg, settings, state, generator,
+                                         attend_limit=attend_limit, mesh=mesh,
+                                         frame=decode_frame)
                 with SPANS.span("codec.step"):
                     mimi_state, p = vocode(mimi_params, mimi_cfg, mimi_state,
                                            out.audio_codes[:, :, None])
@@ -131,7 +138,7 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
                 finished.append(out.finished)
             return state, mimi_state, generator, StreamStepOutput(
                 pcm=torch.cat(pcm, dim=1), audio_codes=torch.stack(codes, dim=-1),
-                is_audio=torch.stack(is_audio, dim=-1), finished=state.finished,
+                is_audio=torch.stack(is_audio, dim=-1), finished=finished[-1],
                 slow_token=torch.stack(slow, dim=-1),
                 finished_frames=torch.stack(finished, dim=-1),
             )

@@ -85,7 +85,9 @@ def rope_cos_sin(
     """cos/sin tables [*positions.shape, head_dim//2], computed in f32 and
     rounded to `dtype` (bf16 by default, as the reference caches them)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(float(base), dtype=torch.float32, device=positions.device), exponent)
+    # a fill, not a host-to-device copy, so a CUDA graph can capture it
+    base = torch.full((), float(base), dtype=torch.float32, device=positions.device)
+    inv_freq = 1.0 / torch.pow(base, exponent)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
 

@@ -10,16 +10,19 @@ greedy included, or raises. `sample_categorical` is the same kernel without
 the window and the finished rows.
 
 The kernel draws its Gumbel noise from Philox, keyed by a (seed, offset)
-pair drawn from the caller's generator, so it matches the plain version in
-distribution, not draw for draw; min_p = 1, one-hot logits and temperature
-0 are exact. `philox_gumbel_plain` is the kernel's noise draw for draw, and
-`sample_slow_token_emulated` the plain math fed that noise: the kernel's
-ids, up to near ties.
+pair drawn from the caller's generator (`philox_seed`, also K1's; a
+captured CUDA graph takes the pairs as static inputs, `StaticSeeds`), so it
+matches the plain version in distribution, not draw for draw; min_p = 1,
+one-hot logits and temperature 0 are exact. `philox_gumbel_plain` is the
+kernel's noise draw for draw, and `sample_slow_token_emulated` the plain
+math fed that noise: the kernel's ids, up to near ties.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -34,10 +37,48 @@ _M32 = 0xFFFFFFFF
 
 
 def philox_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """{seed, offset} as two int64 on `device`, drawn from `generator`."""
+    """{seed, offset} as two int64 on `device`, drawn from `generator`; while
+    a `StaticSeeds` holds the thread, its next buffer instead."""
+    held = getattr(_HELD, "seeds", None)
+    if held is not None:
+        return held._take(device)
     gdev = generator.device if generator is not None else torch.device("cpu")
     seed = torch.randint(0, 2**62, (2,), generator=generator, device=gdev, dtype=torch.int64)
     return seed.to(device, non_blocking=True)
+
+
+_HELD = threading.local()
+
+
+class StaticSeeds:
+    """The (seed, offset) pairs of a captured program as static inputs.
+    Inside `hold()` each `philox_seed` call of this thread takes the next
+    buffer (made, zeroed, by the first pass; later passes reuse them) and
+    draws nothing. `draw(generator)` fills the buffers by the same calls in
+    the same order, so a replay draws what the eager calls would."""
+
+    def __init__(self):
+        self.buffers: list = []
+        self._next = 0
+
+    @contextlib.contextmanager
+    def hold(self):
+        self._next, _HELD.seeds = 0, self
+        try:
+            yield self
+        finally:
+            _HELD.seeds = None
+
+    def _take(self, device) -> torch.Tensor:
+        if self._next == len(self.buffers):
+            self.buffers.append(torch.zeros(2, dtype=torch.int64, device=device))
+        buf = self.buffers[self._next]
+        self._next += 1
+        return buf
+
+    def draw(self, generator: Optional[torch.Generator]) -> None:
+        for buf in self.buffers:
+            buf.copy_(philox_seed(generator, buf.device))
 
 
 # The plain version is the LM sampler itself.

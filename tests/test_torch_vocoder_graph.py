@@ -6,7 +6,8 @@ and flushes, leaves the given state holding what the chain of
 `VocoderGraphs` with a stand-in graph (its replay the eager step over the
 captured state) holds one graph per state and codes shape; and the callers
 that keep their states in place: interleaved `SmolTTS.stream` generators on
-one instance, and the engine's admissions on its reused sub-states."""
+one instance (the LM's B=1 state kept too), and the engine's admissions on
+its reused sub-states."""
 
 import numpy as np
 import pytest
@@ -208,6 +209,7 @@ def test_interleaved_library_streams_each_give_what_they_give_alone(tmp_path):
     alone = [list(tts.stream(t)) for t in texts]
     assert len(alone[0]) > 32 and all(len(c) > 0 for c in alone)
     owned = [t.data_ptr() for t in tm.stream_state_leaves(tts._stream_mimi)]
+    owned_lm = [t.data_ptr() for t in tts._stream_lm if t is not None]
     for first in (0, 1):
         gens = {i: tts.stream(texts[i]) for i in (first, 1 - first)}
         got = {i: [] for i in gens}
@@ -222,13 +224,14 @@ def test_interleaved_library_streams_each_give_what_they_give_alone(tmp_path):
             assert len(got[i]) == len(alone[i])
             for a, b in zip(got[i], alone[i]):
                 np.testing.assert_array_equal(a, b)
-    assert not tts._stream_mimi_taken
+    assert not tts._stream_states_taken
     assert [t.data_ptr() for t in tm.stream_state_leaves(tts._stream_mimi)] == owned
+    assert [t.data_ptr() for t in tts._stream_lm if t is not None] == owned_lm
     gen = tts.stream(texts[0])  # closed early: the state is given back
     next(gen)
-    assert tts._stream_mimi_taken
+    assert tts._stream_states_taken
     gen.close()
-    assert not tts._stream_mimi_taken
+    assert not tts._stream_states_taken
 
 
 def audio_prompt(cfg, tok, T, seed):
