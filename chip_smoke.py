@@ -321,10 +321,10 @@ def kernel_intervals(events) -> list:
     return sorted(ks, key=lambda k: k[1])
 
 
-def trace_categories(prof) -> dict:
-    """How many events of each category the window's trace holds."""
+def trace_categories(events) -> dict:
+    """How many events of each category a window's trace holds."""
     cats = {}
-    for e in trace_events(prof):
+    for e in events:
         cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
     return cats
 
@@ -2600,6 +2600,10 @@ class Smoke:
         t0 = time.perf_counter()
         smi = nvidia_smi()
         cfg = self.lm()[0]
+        # A process's first profiler session, opened while only other threads
+        # (the server's engine) launch kernels, sees none of theirs: open one
+        # over a kernel of this thread first.
+        _profile(lambda: self.torch.ones(1, device=self.dev).add_(1), 1, 0)
         with tempfile.TemporaryDirectory() as tmp:
             d = Path(tmp)
             self._write_checkpoint(d, cfg)
@@ -2844,12 +2848,13 @@ class Smoke:
                     time.sleep(2.0)
                     window = time.perf_counter() - t
                 steps = eng.stats["frame_steps"] - s0
-                kernels = trace_kernels(prof)
+                events = trace_events(prof)  # a trace is exported once
+                kernels = kernel_intervals(events)
                 if kernels:
                     break
                 log(f"[9 server] (ii) profiler window {attempt + 1} from frame step {s0} saw no "
                     f"kernel while the engine made {steps} frame steps; trace categories "
-                    f"{trace_categories(prof)}")
+                    f"{trace_categories(events)}")
             check(kernels, "the profiler window over the served run saw no kernel in 3 windows")
             idle = round(1.0 - busy_us(kernels) / (window * 1e6), 4)
             log(f"[9 server] (ii) profiler window {attempt + 1} from frame step {s0}: {window:.3f} s, "
@@ -4013,7 +4018,7 @@ class Smoke:
     def phase16_lm_graph(self):
         from smoltts_torch import ops
         from smoltts_torch.config import smoltts_byte_70m
-        from smoltts_torch.lm.decode import init_decode_state, prefill
+        from smoltts_torch.lm.decode import init_decode_state, prefill, scatter_decode_state
         from smoltts_torch.lm.graph import LMFrameGraphs, frame_in_place, map_decode_state
         from smoltts_torch.lm.pipeline import flush_cadence, make_flush_step
         from smoltts_torch.lm.samplers import GenerationSettings
@@ -4042,12 +4047,7 @@ class Smoke:
         def admit(states, sub, slots):  # DecodeEngine._admit's scatter
             idx = torch.tensor(slots, device=dev)
             for st in states:
-                for big, small in ((st.k, sub.k), (st.v, sub.v), (st.k_scale, sub.k_scale),
-                                   (st.v_scale, sub.v_scale)):
-                    big.index_copy_(1, idx, small)
-                st.tail_pos.index_fill_(0, idx, -1)
-                for name in ("flushed", "pos", "prev_tokens", "finished"):
-                    getattr(st, name).index_copy_(0, idx, getattr(sub, name))
+                scatter_decode_state(st, sub, idx)
 
         for name, cfg, params, B, S, buckets in cases:
             token_cfg, prompt, lens = self._prompts(cfg, B, 64)

@@ -58,6 +58,13 @@ class DecodeState(NamedTuple):
         return self.k_tail.shape[3]
 
 
+# The leaves `prefill` and `decode_frame` give anew (they write the history
+# and the ring tails in place): each slot's history length, position, next
+# input frame and finished flag, then the ring's column map and write column.
+SLOT_LEAVES = ("flushed", "pos", "prev_tokens", "finished")
+RENEWED_LEAVES = SLOT_LEAVES + ("tail_pos", "phase")
+
+
 class FrameOutput(NamedTuple):
     tokens: torch.Tensor  # [B, num_rows] int32, next slow-model input frame
     audio_codes: torch.Tensor  # [B, num_codebooks] int32
@@ -118,6 +125,22 @@ def reset_decode_state(state: DecodeState) -> DecodeState:
         if t is not None:
             t.fill_(1.0)
     return state
+
+
+def scatter_decode_state(big: DecodeState, small: DecodeState,
+                         idx: torch.Tensor) -> DecodeState:
+    """Write an n-slot state fresh from `prefill` into the slots `idx` (an
+    index tensor on the state's device) of a B-slot state, in place on
+    `big`: the history and each slot's leaves. The slots' ring-tail entries
+    are emptied: the prompt's K/V went straight to the history."""
+    for b, s in ((big.k, small.k), (big.v, small.v), (big.k_scale, small.k_scale),
+                 (big.v_scale, small.v_scale)):
+        if b is not None:
+            b.index_copy_(1, idx, s)
+    big.tail_pos.index_fill_(0, idx, -1)
+    for name in SLOT_LEAVES:
+        getattr(big, name).index_copy_(0, idx, getattr(small, name))
+    return big
 
 
 def flush_kv(state: DecodeState) -> DecodeState:

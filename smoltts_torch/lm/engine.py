@@ -86,7 +86,7 @@ class Record(NamedTuple):
 
     payload: tuple  # host snapshots: (codes, is_audio, finished, slow, pcm or None)
     rows: list  # [(row index in payload, stream id)]
-    n_frames: int  # 1 or chunk K (payload frame-major [K, B, ...])
+    n_frames: int  # K: the payload is frame-major [K, B, ...]
     urgent: bool = False
     # Dispatch ordinal of every record, urgent ones included.
     seq: int = 0
@@ -95,6 +95,18 @@ class Record(NamedTuple):
     meta: dict = None
     # The card's event after the snapshot copies (None on the CPU).
     event: Optional[object] = None
+
+
+def _stacked(tensors: list) -> torch.Tensor:
+    """K tensors stacked on a new axis 0; at K = 1 a view (no device op)."""
+    return tensors[0][None] if len(tensors) == 1 else torch.stack(tensors)
+
+
+def _frame_major(outs: list) -> tuple:
+    """(codes, is_audio, finished, slow) [K, B, ...] from K frames' outputs
+    (`FrameOutput`s or `StreamStepOutput`s)."""
+    return tuple(_stacked([getattr(o, f) for o in outs])
+                 for f in ("audio_codes", "is_audio", "finished", "slow_token"))
 
 
 class DecodeEngine:
@@ -116,8 +128,7 @@ class DecodeEngine:
         attend_buckets: Optional[List[int]] = None,
         inflight: int = 2,
         fetch_every: int = 1,
-        emit_int16: bool = False,
-        emit_format: str = None,
+        emit_format: str = "f32",
         chunk_frames: int = 1,
         tail_len: int = 128,
         admit_sizes: Optional[List[int]] = None,
@@ -136,11 +147,9 @@ class DecodeEngine:
         # emit_format: the PCM representation of fetched frames, made on the
         # device: "f32", "int16" (what the stream route serves; 2x fewer bytes
         # to the host) or "ulaw" (G.711 mu-law, 4x fewer; io/g711.py).
-        # emit_int16=True is the older spelling of "int16".
-        self.emit_format = emit_format or ("int16" if emit_int16 else "f32")
-        if self.emit_format not in ("f32", "int16", "ulaw"):
-            raise ValueError(f"emit_format {self.emit_format!r}")
-        self.emit_int16 = self.emit_format == "int16"
+        if emit_format not in ("f32", "int16", "ulaw"):
+            raise ValueError(f"emit_format {emit_format!r}")
+        self.emit_format = emit_format
         self.params = fuse_decode_params(params)  # bit-exact (ops/quant.py)
         self.cfg = cfg
         self.token_cfg = token_cfg
@@ -237,8 +246,8 @@ class DecodeEngine:
         self._admit_mimi: Dict[int, object] = {}
         # The LM frame's graphs over the engine's state, one per attend bucket.
         self._lm_frame = LMFrameGraphs(max_graphs=len(self.attend_buckets))
-        self._stream_steps: Dict[int, callable] = {}
-        self._chunk_steps: Dict[int, callable] = {}
+        # The frame loops (lm/pipeline.py frame_loop), by (K, attend limit).
+        self._steps: Dict[Tuple[int, int], callable] = {}
         # Ring-tail flush cadence of the LM (and codec transformer) tails.
         self._flush_step = make_flush_step(device=self.device)
         self._since_flush = 0
@@ -292,8 +301,7 @@ class DecodeEngine:
         seed = self.generator.initial_seed()
         self.generator = torch.Generator(device=self.device).manual_seed(seed + mesh.data)
         self._admit_generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._stream_steps.clear()
-        self._chunk_steps.clear()
+        self._steps.clear()
         return self
 
     @property
@@ -352,25 +360,20 @@ class DecodeEngine:
         event.record(torch.cuda.current_stream(self.device))
         return tuple(host), event
 
-    def _stream_step(self, lim: int):
-        from smoltts_torch.lm.pipeline import make_stream_step
+    def _step(self, K: int, lim: int):
+        """K frames, each vocoded, attending up to `lim` (lm/pipeline.py
+        frame_loop)."""
+        from smoltts_torch.lm.pipeline import frame_loop
 
-        if lim not in self._stream_steps:
-            self._stream_steps[lim] = make_stream_step(
-                self.cfg, self.token_cfg, self.settings, self.mimi_cfg, attend_limit=lim,
-                device=self.device, mesh=self.mesh, vocoder=self._vocoder,
-                lm_frame=self._lm_frame)
-        return self._stream_steps[lim]
-
-    def _chunk_step(self, lim: int):
-        from smoltts_torch.lm.pipeline import make_chunk_step
-
-        if lim not in self._chunk_steps:
-            self._chunk_steps[lim] = make_chunk_step(
-                self.cfg, self.token_cfg, self.settings, self.mimi_cfg, self.chunk_frames,
-                attend_limit=lim, device=self.device, mesh=self.mesh, vocoder=self._vocoder,
-                lm_frame=self._lm_frame)
-        return self._chunk_steps[lim]
+        step = self._steps.get((K, lim))
+        if step is None:
+            graphed = self._lm_frame.graphed(self.params, self.cfg, self.settings, self.state,
+                                             self.mesh)
+            step = self._steps[K, lim] = frame_loop(
+                self.cfg, self.token_cfg, self.settings, self.mimi_cfg, K, attend_limit=lim,
+                mesh=self.mesh, vocoder=self._vocoder,
+                lm_frame=self._lm_frame if graphed else None)
+        return step
 
     def _flush(self, state, mstate):
         """Flush the LM and codec ring tails -> (state', mstate')."""
@@ -378,24 +381,19 @@ class DecodeEngine:
             return self._flush_step(state, mstate)
 
     def _advance(self, state, mstate, K: int, lim: int, generator):
-        """K frames for every slot -> (state', mstate', (codes, is_audio,
-        finished, slow), pcm or None); a chunk's outputs frame-major [K, B, ...]."""
+        """K frames for every slot (K is 1 without the vocoder) -> (state',
+        mstate', (codes, is_audio, finished, slow), pcm or None), frame-major
+        [K, B, ...]."""
         with SPANS.span("engine.advance"):
             if mstate is None:
-                state, o = decode_frame(self.params, self.cfg, self.token_cfg, self.settings,
-                                        state, generator, attend_limit=lim, mesh=self.mesh)
-                return state, None, (o.audio_codes, o.is_audio, o.finished, o.slow_token), None
-            if K == 1:
-                state, mstate, _, o = self._stream_step(lim)(self.params, self.mimi_params, state,
-                                                             mstate, generator)
-                return (state, mstate, (o.audio_codes, o.is_audio, o.finished, o.slow_token),
-                        self._emit_pcm(o.pcm))
-            state, mstate, _, o = self._chunk_step(lim)(self.params, self.mimi_params, state,
-                                                        mstate, generator)
-            B, spf = o.pcm.shape[0], o.pcm.shape[1] // K
-            pcm = self._emit_pcm(o.pcm).reshape(B, K, spf, 1).transpose(0, 1)
-            return state, mstate, (o.audio_codes.permute(2, 0, 1), o.is_audio.t(),
-                                   o.finished_frames.t(), o.slow_token.t()), pcm
+                state, out = decode_frame(self.params, self.cfg, self.token_cfg, self.settings,
+                                          state, generator, attend_limit=lim, mesh=self.mesh)
+                return state, None, _frame_major([out]), None
+            with SPANS.span("step.stream" if K == 1 else "step.chunk"):
+                state, mstate, outs = self._step(K, lim)(self.params, self.mimi_params, state,
+                                                         mstate, generator)
+            pcm = self._emit_pcm(_stacked([o.pcm for o in outs]))
+            return state, mstate, _frame_major(outs), pcm
 
     def _admit(self, state, mstate, slots: List[int], prompt: np.ndarray, lens: np.ndarray,
                generator):
@@ -406,6 +404,7 @@ class DecodeEngine:
         (state, first FrameOutput, PCM). Sharded, every rank prefills and
         vocodes all n prompts and scatters the rows of the slots it holds."""
         from smoltts_torch.codec.mimi import reset_stream_slots, scatter_stream_state
+        from smoltts_torch.lm.decode import scatter_decode_state
         from smoltts_torch.parallel.serving import take_slots
 
         with SPANS.span("engine.admit"):
@@ -420,16 +419,7 @@ class DecodeEngine:
             sub, out = prefill(self.params, self.cfg, self.token_cfg, self.settings, sub,
                                self._upload(prompt), self._upload(lens), generator, mesh=self.mesh)
             if rows:
-                mine = sub if pick is None else take_slots(sub, pick)
-                for big, small in ((state.k, mine.k), (state.v, mine.v),
-                                   (state.k_scale, mine.k_scale), (state.v_scale, mine.v_scale)):
-                    if big is not None:
-                        big.index_copy_(1, idx, small)
-                # stale ring-tail entries of a reused slot are invalidated; the
-                # prompt's K/V went straight to the history
-                state.tail_pos.index_fill_(0, idx, -1)
-                for name in ("flushed", "pos", "prev_tokens", "finished"):
-                    getattr(state, name).index_copy_(0, idx, getattr(mine, name))
+                scatter_decode_state(state, sub if pick is None else take_slots(sub, pick), idx)
             pcm = None
             if mstate is not None:
                 msub = self._admit_mimi_state(n, mstate)
@@ -625,8 +615,8 @@ class DecodeEngine:
     def account(self, records: list, fetched: list) -> List[Tuple[int, dict]]:
         """Lagged bookkeeping over fetched results, in dispatch order.
         Mutates engine state (eviction, slot reuse): call under the lock. A
-        record holds 1 frame ([B, ...]) or a chunk of K (frame-major
-        [K, B, ...]); frames emit in order per stream."""
+        record holds K frames, frame-major [K, B, ...]; frames emit in order
+        per stream."""
         emitted = []
         if records:
             self.stats["fetch_calls"] += 1
@@ -634,20 +624,16 @@ class DecodeEngine:
             self.stats["urgent_fetched"] += sum(r.urgent for r in records)
         for (codes, is_audio, fin, slow, pcm), rec in zip(fetched, records):
             self._unaccounted.discard(rec.seq)
-            rows, n_frames = rec.rows, rec.n_frames
-            for k in range(n_frames):
-                ck, ak, fk, sk = ((codes, is_audio, fin, slow) if n_frames == 1
-                                  else (codes[k], is_audio[k], fin[k], slow[k]))
-                pk = pcm if (pcm is None or n_frames == 1) else pcm[k]
-                for row, sid in rows:
+            for k in range(rec.n_frames):
+                for row, sid in rec.rows:
                     frame = {
-                        "audio_codes": ck[row],
-                        "is_audio": bool(ak[row]),
-                        "finished": bool(fk[row]),
-                        "slow_token": int(sk[row]),
+                        "audio_codes": codes[k, row],
+                        "is_audio": bool(is_audio[k, row]),
+                        "finished": bool(fin[k, row]),
+                        "slow_token": int(slow[k, row]),
                     }
-                    if pk is not None:
-                        frame["pcm"] = pk[row, :, 0]
+                    if pcm is not None:
+                        frame["pcm"] = pcm[k, row, :, 0]
                     frame = self._bookkeep(sid, frame)
                     if frame is not None:
                         emitted.append((sid, frame))
@@ -771,8 +757,8 @@ class DecodeEngine:
             self.state, out, pcm0 = self._admit(self.state, self.mimi_state, slots, prompt, lens,
                                                 self._admit_generator)
             if self.is_leader:
-                snaps.append(self._snapshot(
-                    (out.audio_codes, out.is_audio, out.finished, out.slow_token, pcm0)))
+                snaps.append(self._snapshot((*_frame_major([out]),
+                                             None if pcm0 is None else pcm0[None])))
         if plan["advance"] is not None:
             K, lim, flush = plan["advance"]
             if flush:
@@ -780,8 +766,8 @@ class DecodeEngine:
             self.state, self.mimi_state, out, pcm = self._advance(
                 self.state, self.mimi_state, K, lim, self.generator)
             outs = (*out, pcm)
-            if self.mesh is not None:  # slots are axis 1 of a chunk's frame-major outputs
-                outs = self.mesh.data_gather(outs, 1 if K > 1 else 0)
+            if self.mesh is not None:  # slots are axis 1 of the frame-major outputs
+                outs = self.mesh.data_gather(outs, 1)
             if self.is_leader:
                 snaps.append(self._snapshot(outs))
         return snaps

@@ -4,16 +4,17 @@
 `make_stream_step` (one frame -> 1920 PCM samples per stream),
 `make_chunk_step` (K frames -> K * 1920 samples per stream per call, the
 throughput mode) and `make_flush_step` (consolidate the LM and codec ring
-tails) return plain
-callables with the JAX package's signatures: state in, state out, with the
-generator in the place of the PRNG key. Large buffers are updated in place
-(see lm/decode.py), so a state passed to a step must not be reused. The
-stream and chunk steps step the LM state wholly in place, by `lm_frame`
-(lm/graph.py: an `LMFrameGraphs`, which replays the frame as a CUDA graph,
-or by default the eager `frame_in_place` over this module's
-`decode_frame`), and every step steps the vocoder state wholly in place,
-by `vocoder` (codec/graph.py: a `VocoderGraphs`, which replays the step as
-a CUDA graph, or by default the eager `step_in_place`).
+tails) return plain callables with the JAX package's signatures: state in,
+state out, with the generator in the place of the PRNG key. Large buffers
+are updated in place (see lm/decode.py), so a state passed to a step must
+not be reused. The stream and chunk steps run one loop over their frames
+(`frame_loop`, which the engine runs too). It steps the LM state wholly in
+place, by `lm_frame` (lm/graph.py: an `LMFrameGraphs`, which replays the
+frame as a CUDA graph, or by default `_frame_in_place`, the eager
+`decode_frame` that this module imports, each renewed leaf copied back), and
+every step steps the vocoder state wholly in place, by `vocoder`
+(codec/graph.py: a `VocoderGraphs`, which replays the step as a CUDA
+graph, or by default the eager `step_in_place`).
 
 Each call records its span (`step.prefill`, `step.stream`, `step.chunk`,
 `step.flush`; utils/profiling.py `SPANS`), and inside it each LM frame
@@ -31,8 +32,8 @@ from smoltts_torch.codec.config import MimiConfig
 from smoltts_torch.codec.graph import step_in_place
 from smoltts_torch.codec.mimi import MimiStreamState, flush_mimi_state
 from smoltts_torch.config import DualARConfig
-from smoltts_torch.lm.decode import DecodeState, decode_frame, flush_kv, prefill
-from smoltts_torch.lm.graph import frame_in_place
+from smoltts_torch.lm.decode import DecodeState, FrameOutput, decode_frame, flush_kv, prefill
+from smoltts_torch.lm.graph import keep_in_place
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.tokenizer import TokenConfig
 from smoltts_torch.utils.profiling import SPANS
@@ -48,6 +49,48 @@ class StreamStepOutput(NamedTuple):
     finished_frames: Optional[torch.Tensor] = None  # [B, K] after each frame (chunked)
 
 
+def _vocoded(vocode, mimi_params, mimi_cfg, mimi_state, out: FrameOutput):
+    """One frame's codes vocoded (`codec.step`) -> (mimi_state',
+    StreamStepOutput)."""
+    with SPANS.span("codec.step"):
+        mimi_state, pcm = vocode(mimi_params, mimi_cfg, mimi_state, out.audio_codes[:, :, None])
+    return mimi_state, StreamStepOutput(pcm=pcm, audio_codes=out.audio_codes,
+                                        is_audio=out.is_audio, finished=out.finished,
+                                        slow_token=out.slow_token)
+
+
+def _frame_in_place(params, cfg, token_cfg, settings, state, generator, attend_limit=None,
+                    mesh=None):
+    """lm/graph.py `frame_in_place` over the `decode_frame` of this module,
+    the name that the benchmark's fault tests patch."""
+    new, out = decode_frame(params, cfg, token_cfg, settings, state, generator,
+                            attend_limit=attend_limit, mesh=mesh)
+    return keep_in_place(state, new), out
+
+
+def frame_loop(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
+               mimi_cfg: MimiConfig, frames: int, attend_limit: Optional[int] = None,
+               mesh=None, vocoder=None, lm_frame=None):
+    """The frame steps' loop: (lm_params, mimi_params, state, mimi_state,
+    generator) -> (state', mimi_state', [StreamStepOutput] one per frame),
+    `frames` LM frames (`lm.frame`), each vocoded (`codec.step`). Arguments
+    as in `make_stream_step`; the caller opens its step's span."""
+    vocode = step_in_place if vocoder is None else vocoder
+    advance = _frame_in_place if lm_frame is None else lm_frame
+
+    def loop(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
+        outs = []
+        for _ in range(frames):
+            with SPANS.span("lm.frame"):
+                state, out = advance(lm_params, cfg, token_cfg, settings, state, generator,
+                                     attend_limit=attend_limit, mesh=mesh)
+            mimi_state, out = _vocoded(vocode, mimi_params, mimi_cfg, mimi_state, out)
+            outs.append(out)
+        return state, mimi_state, outs
+
+    return loop
+
+
 def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: GenerationSettings,
                      mimi_cfg: MimiConfig, attend_limit: Optional[int] = None, device=None,
                      mesh=None, vocoder=None, lm_frame=None):
@@ -58,22 +101,14 @@ def make_stream_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Genera
     rank steps its own slots); None for whole trees. `vocoder` and
     `lm_frame`: the vocoder step and the LM frame (module docstring)."""
     resolve_device(device)
-    vocode = step_in_place if vocoder is None else vocoder
-    advance = frame_in_place if lm_frame is None else lm_frame
+    loop = frame_loop(cfg, token_cfg, settings, mimi_cfg, 1, attend_limit, mesh, vocoder,
+                      lm_frame)
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
         with SPANS.span("step.stream"):
-            with SPANS.span("lm.frame"):
-                state, out = advance(lm_params, cfg, token_cfg, settings, state, generator,
-                                     attend_limit=attend_limit, mesh=mesh, frame=decode_frame)
-            with SPANS.span("codec.step"):
-                mimi_state, pcm = vocode(mimi_params, mimi_cfg, mimi_state,
-                                         out.audio_codes[:, :, None])
-            return state, mimi_state, generator, StreamStepOutput(
-                pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio,
-                finished=out.finished, slow_token=out.slow_token,
-            )
+            state, mimi_state, (out,) = loop(lm_params, mimi_params, state, mimi_state, generator)
+            return state, mimi_state, generator, out
 
     return step
 
@@ -93,13 +128,8 @@ def make_prefill_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Gener
             with SPANS.span("lm.frame"):
                 state, out = prefill(lm_params, cfg, token_cfg, settings, state, prompt,
                                      prompt_len, generator, mesh=mesh)
-            with SPANS.span("codec.step"):
-                mimi_state, pcm = vocode(mimi_params, mimi_cfg, mimi_state,
-                                         out.audio_codes[:, :, None])
-            return state, mimi_state, generator, StreamStepOutput(
-                pcm=pcm, audio_codes=out.audio_codes, is_audio=out.is_audio,
-                finished=out.finished, slow_token=out.slow_token,
-            )
+            mimi_state, out = _vocoded(vocode, mimi_params, mimi_cfg, mimi_state, out)
+            return state, mimi_state, generator, out
 
     return step
 
@@ -116,31 +146,20 @@ def make_chunk_step(cfg: DualARConfig, token_cfg: TokenConfig, settings: Generat
     so the K frames fit the tails. `mesh`, `vocoder` and `lm_frame` as in
     `make_stream_step`."""
     resolve_device(device)
-    vocode = step_in_place if vocoder is None else vocoder
-    advance = frame_in_place if lm_frame is None else lm_frame
+    loop = frame_loop(cfg, token_cfg, settings, mimi_cfg, frames_per_chunk, attend_limit, mesh,
+                      vocoder, lm_frame)
 
     @torch.no_grad()
     def step(lm_params, mimi_params, state: DecodeState, mimi_state: MimiStreamState, generator):
         with SPANS.span("step.chunk"):
-            pcm, codes, is_audio, slow, finished = [], [], [], [], []
-            for _ in range(frames_per_chunk):
-                with SPANS.span("lm.frame"):
-                    state, out = advance(lm_params, cfg, token_cfg, settings, state, generator,
-                                         attend_limit=attend_limit, mesh=mesh,
-                                         frame=decode_frame)
-                with SPANS.span("codec.step"):
-                    mimi_state, p = vocode(mimi_params, mimi_cfg, mimi_state,
-                                           out.audio_codes[:, :, None])
-                pcm.append(p)
-                codes.append(out.audio_codes)
-                is_audio.append(out.is_audio)
-                slow.append(out.slow_token)
-                finished.append(out.finished)
+            state, mimi_state, outs = loop(lm_params, mimi_params, state, mimi_state, generator)
+            frames = StreamStepOutput(*zip(*outs))
             return state, mimi_state, generator, StreamStepOutput(
-                pcm=torch.cat(pcm, dim=1), audio_codes=torch.stack(codes, dim=-1),
-                is_audio=torch.stack(is_audio, dim=-1), finished=finished[-1],
-                slow_token=torch.stack(slow, dim=-1),
-                finished_frames=torch.stack(finished, dim=-1),
+                pcm=torch.cat(frames.pcm, dim=1),
+                audio_codes=torch.stack(frames.audio_codes, dim=-1),
+                is_audio=torch.stack(frames.is_audio, dim=-1), finished=frames.finished[-1],
+                slow_token=torch.stack(frames.slow_token, dim=-1),
+                finished_frames=torch.stack(frames.finished, dim=-1),
             )
 
     return step

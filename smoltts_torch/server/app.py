@@ -209,7 +209,7 @@ def build_engine_loop(
         mimi_cfg=m.codec_config,
         inflight=inflight,
         fetch_every=fetch_every,
-        emit_int16=True,  # the stream route serves PCM16; half the bytes of f32
+        emit_format="int16",  # the stream route serves PCM16; half the bytes of f32
         chunk_frames=chunk_frames,
         device=m.device,
     )

@@ -26,6 +26,7 @@ from smoltts_torch.codec import mimi as tm
 from smoltts_torch.codec.config import MimiConfig
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.ops.quant import QTensor
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 32
 MIMI = dict(

@@ -35,6 +35,7 @@ from smoltts_torch.ops.attention import (
     decode_attention_tailed,
     decode_attention_tailed_plain,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -22,6 +22,7 @@ from smoltts_torch.bpe import BPETokenizer, gpt2_split
 from smoltts_torch.tokenizer import (
     ByteTokenizer, byte_level_tokenizer_json, load_tokenizer, special_token_list,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 FIXTURE = Path(__file__).parent / "data" / "torch_bpe_fixture.json"
 SPEC = json.loads(FIXTURE.read_text(encoding="utf-8"))

@@ -25,6 +25,7 @@ from smoltts_torch.io import checkpoint as tci
 from smoltts_torch.io import safetensors as tst
 from smoltts_torch.io.wav import pcm_to_wav_bytes, wav_header
 from smoltts_torch.tokenizer import ByteTokenizer, load_tokenizer, save_byte_level_tokenizer
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16, "f16": np.float16,
           "i32": np.int32, "i8": np.int8, "bool": np.bool_}

@@ -23,6 +23,7 @@ from smoltts_torch.codec import transformer as ttf
 from smoltts_torch.codec.config import MimiConfig
 from smoltts_torch.interop import params_from_jax_numpy
 from smoltts_torch.io.safetensors import save_file
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SMALL = dict(
     num_filters=8, upsampling_ratios=[4, 3, 2], hidden_size=32, num_hidden_layers=2,

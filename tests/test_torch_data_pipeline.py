@@ -39,6 +39,7 @@ from smoltts_torch.data_pipeline import tokenize_dataset as ttd
 from smoltts_torch.io.checkpoint import load_params
 from smoltts_torch.io.safetensors import save_file
 from smoltts_torch.tokenizer import ByteTokenizer
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 BPE_SPEC = json.loads((ROOT / "tests" / "data" / "torch_bpe_fixture.json")

@@ -22,6 +22,7 @@ from smoltts_torch.interop import params_from_jax_numpy
 from smoltts_torch.lm import decode as td
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 32
 

@@ -25,6 +25,7 @@ from smoltts_torch.lm.pipeline import make_prefill_step, make_stream_step
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.models.dual_ar import init_params
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 32
 MIMI = dict(
@@ -243,7 +244,7 @@ def test_engine_emit_int16():
     prompt = audio_prompt(cfg, tok, 6, 0)
     _, ref = single_stream_pcm(cfg, tok, params, mcfg, mimi, prompt, 3, settings)
     eng = engine(cfg, tok, params, settings, num_slots=1, mimi_params=mimi, mimi_cfg=mcfg,
-                 emit_int16=True)
+                 emit_format="int16")
     sid = eng.submit(prompt)
     got = [f["pcm"] for f in drain(eng, {})[sid]]
     assert len(got) == len(ref)
@@ -462,7 +463,7 @@ def test_records_do_not_alias_the_state():
         eng.dispatch_step()
     rec = [r for r in eng._queue if not r.urgent][-1]  # the frame that ended the budget
     eng._mark_freed()  # in place on the state's finished flags
-    assert not bool(rec.payload[2][0]) and bool(eng.state.finished[0])
+    assert not bool(rec.payload[2][0, 0]) and bool(eng.state.finished[0])
     assert all(t.data_ptr() != s.data_ptr() for t in rec.payload if t is not None
                for s in (eng.state.finished, eng.state.prev_tokens))
     assert len(drain(eng, {})[sid]) == 3

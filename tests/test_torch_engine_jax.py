@@ -29,6 +29,7 @@ from smoltts_torch.interop import params_from_jax_numpy
 from smoltts_torch.lm.engine import DecodeEngine
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 32
 MIMI = dict(

@@ -34,6 +34,7 @@ from smoltts_torch.ops.fast_loop import (
     fused_fast_micro_loop,
     supports_fused_fast,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 64
 GREEDY_J = JaxSettings(default_temp=0.0, default_fast_temp=0.0)

@@ -12,6 +12,7 @@ from smoltts_tpu.io.g711 import ulaw_decode_np as jax_decode_np
 from smoltts_tpu.io.g711 import ulaw_encode_jnp
 from smoltts_tpu.io.g711 import ulaw_encode_np as jax_encode_np
 from smoltts_torch.io.g711 import ulaw_decode_np, ulaw_encode, ulaw_encode_np
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _host(x: np.ndarray) -> np.ndarray:

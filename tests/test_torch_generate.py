@@ -31,6 +31,7 @@ from smoltts_torch.lm.decode import init_decode_state
 from smoltts_torch.lm.prompt import PromptEncoder
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 32
 MIMI = dict(

@@ -4,11 +4,13 @@ the given state holding what the chain of `decode_frame` gives, bf16 and
 kv8; the flush writes in place the values it wrote out of place; the RoPE
 tables keep their bits; the engine's state keeps every leaf's storage
 across frames, flushes, admissions and freed slots; `LMFrameGraphs` takes
-the eager path on the CPU and, with a stand-in graph (its replay the eager
-frame over the captured state), holds one graph per state and attend limit
-and returns outputs that later frames do not change; the static seeds draw
+the eager path on the CPU and, with the stand-in recorder
+(tests/torch_graph_stand_in.py), holds one graph per state and attend
+limit, adds the recorded frame's launches per replay and returns outputs
+that later frames do not change; the static seeds draw
 what the eager calls draw; and the `lm_graph_share` reader."""
 
+import contextlib
 import dataclasses
 import importlib.util
 import time
@@ -25,16 +27,18 @@ from smoltts_torch.config import ModelType, tiny_debug_config
 from smoltts_torch.lm import decode as td
 from smoltts_torch.lm.engine import DecodeEngine
 from smoltts_torch.lm.generate import pad_prompts
-from smoltts_torch.lm.graph import (
-    LMFrameGraphs, _Graph, _packed, frame_in_place, map_decode_state,
-)
+from smoltts_torch.lm import graph as lm_graph
+from smoltts_torch.lm.graph import LMFrameGraphs, frame_in_place, map_decode_state
 from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.models.dual_ar import init_params
 from smoltts_torch.models.layers import rope_cos_sin
 from smoltts_torch.ops.quant import quantize_kv
 from smoltts_torch.ops.sampling import StaticSeeds, philox_seed
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from smoltts_torch.utils.graphs import WARMUP
 from smoltts_torch.utils.profiling import SPANS
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
+from tests.torch_graph_stand_in import stand_in_graphs
 
 CB = 32
 MIMI = dict(
@@ -44,17 +48,6 @@ MIMI = dict(
 )
 GREEDY = GenerationSettings(default_temp=0.0, default_fast_temp=0.0)
 KV = pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8], ids=["bf16", "kv8"])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the suite runs several workers on one host, and
-    torch's default (one thread per core in every worker) oversubscribes it;
-    these tensors are too small to gain from more."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def setup():
@@ -103,39 +96,18 @@ def assert_outputs_equal(a, b):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
-class StandInGraphs(LMFrameGraphs):
-    """`LMFrameGraphs` on the CPU, its graph a stand-in whose replay runs
-    the eager frame over the state and output buffers it captured."""
-
-    captures = 0
-
-    @staticmethod
-    def graphed(params, cfg, settings, state, mesh=None):
-        return True
-
-    def _capture(self, params, cfg, token_cfg, settings, state, attend_limit, frame):
-        type(self).captures += 1
-        ints, flags = _packed(frame_in_place(params, cfg, token_cfg, settings, clone(state),
-                                             None, attend_limit=attend_limit, frame=frame)[1])
-        ints, flags = torch.zeros_like(ints), torch.zeros_like(flags)
-
-        class Graph:
-            @staticmethod
-            def replay():
-                got = _packed(frame_in_place(params, cfg, token_cfg, settings, state, None,
-                                             attend_limit=attend_limit, frame=frame)[1])
-                ints.copy_(got[0])
-                flags.copy_(got[1])
-
-        return _Graph(Graph, StaticSeeds(), ints, flags, {("ops", "fast_loop"): 1},
-                      (params, state))
-
-
 @KV
 @pytest.mark.parametrize("entry", ["frame_in_place", "StandInGraphs"])
 def test_the_in_place_frame_gives_the_chain_of_decode_frames(kv, entry):
+    """`StandInGraphs`: `LMFrameGraphs` with the stand-in recorder."""
     cfg, tok, params = setup()
-    step = frame_in_place if entry == "frame_in_place" else StandInGraphs()
+    graphed = entry == "StandInGraphs"
+    with stand_in_graphs() if graphed else contextlib.nullcontext():
+        step = LMFrameGraphs() if graphed else frame_in_place
+        check_the_chain(cfg, tok, params, kv, step)
+
+
+def check_the_chain(cfg, tok, params, kv, step):
     ref = prefilled(cfg, tok, params, kv)
     state = clone(ref)
     owned, held = ptrs(state), []
@@ -235,24 +207,32 @@ def test_lm_frame_graphs_take_the_eager_path_on_the_cpu():
     assert not graphs._graphs
 
 
-def test_graphs_are_held_per_state_and_attend_limit():
+def test_graphs_are_held_per_state_and_attend_limit(monkeypatch):
     cfg, tok, params = setup()
-    graphs = StandInGraphs(max_graphs=2)
-    StandInGraphs.captures = 0
-    states = [prefilled(cfg, tok, params, torch.int8), prefilled(cfg, tok, params, torch.int8)]
-    ref = clone(states[0])
-    graphs.capture(params, cfg, tok, GREEDY, states[0], attend_limit=16)
-    assert_states_equal(states[0], ref)  # a capture does not advance the state
-    before = ops.LAUNCHES["fast_loop"]
-    for state in states:
-        graphs(params, cfg, tok, GREEDY, state, None, attend_limit=16)
-    # another budget, the same sampling: the same graph
-    graphs(params, cfg, tok, dataclasses.replace(GREEDY, max_new_tokens=3), states[0], None,
-           attend_limit=16)
-    assert StandInGraphs.captures == 2 and len(graphs._graphs) == 2
-    assert ops.LAUNCHES["fast_loop"] - before == 3  # the capture's launches, per replay
-    graphs(params, cfg, tok, GREEDY, states[1], None, attend_limit=32)
-    assert StandInGraphs.captures == 3 and len(graphs._graphs) == 2  # the oldest dropped
+    frame = lm_graph.decode_frame
+
+    def launching_frame(*a, **kw):  # one K1 launch a frame, as on the card
+        ops.LAUNCHES["fast_loop"] += 1
+        return frame(*a, **kw)
+
+    monkeypatch.setattr(lm_graph, "decode_frame", launching_frame)
+    with stand_in_graphs() as recorder:
+        graphs = LMFrameGraphs(max_graphs=2)
+        states = [prefilled(cfg, tok, params, torch.int8), prefilled(cfg, tok, params, torch.int8)]
+        ref = clone(states[0])
+        graphs.capture(params, cfg, tok, GREEDY, states[0], attend_limit=16)
+        assert_states_equal(states[0], ref)  # a capture does not advance the state
+        before = ops.LAUNCHES["fast_loop"]
+        for state in states:
+            graphs(params, cfg, tok, GREEDY, state, None, attend_limit=16)
+        # another budget, the same sampling: the same graph
+        graphs(params, cfg, tok, dataclasses.replace(GREEDY, max_new_tokens=3), states[0], None,
+               attend_limit=16)
+        assert recorder.records == 2 and len(graphs._graphs) == 2
+        # the recorded frame's launch, per replay, and the second capture's warm-up passes
+        assert ops.LAUNCHES["fast_loop"] - before == 3 + WARMUP
+        graphs(params, cfg, tok, GREEDY, states[1], None, attend_limit=32)
+        assert recorder.records == 3 and len(graphs._graphs) == 2  # the oldest dropped
 
 
 def test_static_seeds_draw_what_the_eager_calls_draw():

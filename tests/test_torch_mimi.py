@@ -14,6 +14,7 @@ from smoltts_tpu.ops.quant import fuse_mimi_decode_params, quantize_mimi_params
 from smoltts_torch.codec import mimi as tm
 from smoltts_torch.codec.config import MimiConfig
 from smoltts_torch.interop import params_from_jax_numpy, tree_map
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 TINY = dict(
     num_filters=8, upsampling_ratios=[4, 3, 2], hidden_size=32, num_hidden_layers=2,

@@ -19,6 +19,7 @@ import pytest
 from smoltts_torch.parallel.launch import run_ranks
 from tests import torch_parallel_workers as W
 from tests.test_parallel_serving import _run_engine, _setup
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SPAWN_TIMEOUT = 240.0
 TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_parallel_serving.py:163

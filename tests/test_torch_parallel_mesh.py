@@ -31,6 +31,7 @@ from smoltts_torch.parallel.mesh import (
     shard_params,
 )
 from tests import torch_parallel_workers as W
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SPAWN_TIMEOUT = 120.0
 

@@ -32,6 +32,7 @@ from smoltts_tpu.tokenizer import TokenConfig as JaxTokenConfig
 from smoltts_torch.parallel.launch import run_ranks
 from tests import torch_parallel_workers as W
 from tests.test_parallel_serving import _run, _setup
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SPAWN_TIMEOUT = 180.0
 TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_parallel_serving.py:87

@@ -61,6 +61,7 @@ from smoltts_torch.parallel.mesh import (
 from smoltts_torch.train.loss import compute_losses
 from smoltts_torch.train.optim import tree_leaves
 from tests import torch_parallel_workers as W
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SPAWN_TIMEOUT = 240.0
 ONE = dict(rtol=2e-5, atol=2e-6)  # tests/test_multihost.py: a sharded run against one process

@@ -32,6 +32,7 @@ from smoltts_torch.train.checkpoint import CheckpointManager
 from smoltts_torch.train.data import synthetic_dataset
 from smoltts_torch.train.optim import tree_leaves
 from tests import torch_parallel_workers as W
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 ONE = dict(rtol=2e-5, atol=2e-6)  # tests/test_multihost.py
 CB = 32

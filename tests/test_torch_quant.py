@@ -11,6 +11,7 @@ import torch
 from smoltts_tpu.ops import quant as jq
 from smoltts_torch.interop import params_from_jax_numpy, tree_map
 from smoltts_torch.ops import quant as tq
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _pot_matrix(rng, shape, axis=-2):

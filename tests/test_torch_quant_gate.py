@@ -32,6 +32,7 @@ from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.ops import quant_gate as tgate
 from smoltts_torch.ops.quant import QTensor
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 64
 MIMI = dict(num_filters=8, upsampling_ratios=[4, 3, 2], hidden_size=32, num_hidden_layers=2,

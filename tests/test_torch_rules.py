@@ -14,6 +14,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "smoltts_torch"

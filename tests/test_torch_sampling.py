@@ -27,6 +27,7 @@ from smoltts_torch.ops import sampling as SP
 from smoltts_torch.ops.sampling import sample_categorical, sample_categorical_plain
 from smoltts_torch.tokenizer import TokenConfig
 from tests.test_torch_attention import _c_functions
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def test_min_p_one_is_greedy():

@@ -28,6 +28,7 @@ from smoltts_torch.server.settings import DEFAULT_SETTINGS, ServerSettings
 from smoltts_torch.server.tts_core import TTSCore
 from smoltts_torch.tokenizer import save_byte_level_tokenizer
 from smoltts_tpu.server.settings import ServerSettings as JaxServerSettings
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 32
 MIMI = dict(

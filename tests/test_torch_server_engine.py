@@ -25,6 +25,7 @@ from smoltts_torch.lm.pipeline import make_flush_step, make_prefill_step, make_s
 from smoltts_torch.server.app import build_app, build_engine_loop
 from smoltts_torch.server.tts_core import TTSCore
 from tests.test_torch_server import HOP, make_tts, post, serve, shut, write_checkpoint
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 TEXTS = ["request number 0", "request number 1", "a third request"]
 

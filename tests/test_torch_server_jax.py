@@ -23,6 +23,7 @@ from smoltts_tpu.tokenizer import save_byte_level_tokenizer as jax_save_tokenize
 from smoltts_torch.server.app import build_app
 from smoltts_torch.server.tts_core import TTSCore
 from tests.test_torch_server import CB, HOP, MIMI, make_tts, post, serve, shut
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 SETTINGS = dict(default_temp=0.0, default_fast_temp=0.0, max_new_tokens=6,
                 audio_only_constraint=True)

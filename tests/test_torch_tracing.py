@@ -5,6 +5,7 @@ thread stress, the spans and counters of a `DecodeEngine` + `EngineLoop`
 run with the vocoder, `SmolTTS.stream`'s wait for its PCM, and greedy
 outputs bit-identical with the recorder on and off."""
 
+import contextlib
 import sys
 import threading
 import time
@@ -26,6 +27,8 @@ from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
 from smoltts_torch.utils.profiling import (
     LOCK_ROLES, SPANS, SpanRecorder, TimedLock, lock_counters,
 )
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
+from tests.torch_graph_stand_in import stand_in_graphs
 
 CB = 32
 MIMI = dict(
@@ -295,12 +298,16 @@ def test_vocoder_captures_and_replays_nest_in_its_steps(graphs):
     """A graph's capture and its replays lie inside the `codec.step` that
     made them (the stand-in: a graph whose replay is the eager step); on the
     CPU the steps are eager and record neither."""
+    with stand_in_graphs() if graphs == "stand-in" else contextlib.nullcontext():
+        check_vocoder_spans(graphs)
+
+
+def check_vocoder_spans(graphs):
     from smoltts_torch.codec.graph import VocoderGraphs
-    from tests.test_torch_vocoder_graph import StandInGraphs
 
     cfg, tok, params, mcfg, mimi = setup()
     settings = GenerationSettings(**GREEDY, max_new_tokens=16)
-    vocoder = StandInGraphs() if graphs == "stand-in" else VocoderGraphs()
+    vocoder = VocoderGraphs()
     state = init_decode_state(cfg, 2, 64, dtype=torch.float32, device="cpu")
     ms = tm.decode_stream_init(mcfg, 2, device="cpu")
     padded, lens = pad_prompts([audio_prompt(cfg, tok, 6, s) for s in range(2)],

@@ -26,6 +26,7 @@ from smoltts_torch.models import dual_ar as td
 from smoltts_torch.models import layers as tlayers
 from smoltts_torch.train import loss as tloss
 from smoltts_torch.train.optim import tree_leaves
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 64
 KW = dict(codebook_size=CB, vocab_size=256 + 64 + CB)

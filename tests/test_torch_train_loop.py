@@ -35,6 +35,7 @@ from smoltts_torch.train import data as tdata
 from smoltts_torch.train import optim as toptim
 from smoltts_torch.train import trainer as ttrainer
 from smoltts_torch.train.checkpoint import CheckpointManager
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 CB = 32
 KW = dict(codebook_size=CB, vocab_size=256 + 64 + CB)

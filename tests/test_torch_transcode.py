@@ -17,6 +17,7 @@ from smoltts_tpu.io.g711 import resample_to_8k as jax_resample_to_8k
 from smoltts_tpu.io.wav import pcm_to_int16 as jax_pcm_to_int16
 from smoltts_tpu.native import audio_io as jax_audio_io
 from smoltts_tpu.server.tts_core import transcode as jax_transcode
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def speechlike(n, seed):

@@ -16,6 +16,7 @@ from smoltts_tpu.utils import compare as jcmp
 from smoltts_torch.io.safetensors import save_file
 from smoltts_torch.utils import compare as tcmp
 from smoltts_torch.utils.profiling import SPANS, device_op_summary, trace
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
 
 
 def _dumps(tmp_path):

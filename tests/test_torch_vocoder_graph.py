@@ -3,8 +3,8 @@
 gives the values of an out-of-place flush; the in-place step, over steps
 and flushes, leaves the given state holding what the chain of
 `mimi_decode_step` gives, and returns PCM that later steps do not change;
-`VocoderGraphs` with a stand-in graph (its replay the eager step over the
-captured state) holds one graph per state and codes shape; and the callers
+`VocoderGraphs` with the stand-in recorder (tests/torch_graph_stand_in.py)
+holds one graph per state and codes shape; and the callers
 that keep their states in place: interleaved `SmolTTS.stream` generators on
 one instance (the LM's B=1 state kept too), and the engine's admissions on
 its reused sub-states."""
@@ -15,7 +15,7 @@ import torch
 
 from smoltts_torch.codec import mimi as tm
 from smoltts_torch.codec.config import MimiConfig
-from smoltts_torch.codec.graph import VocoderGraphs, _Graph, step_in_place
+from smoltts_torch.codec.graph import VocoderGraphs, step_in_place
 from smoltts_torch.codec.transformer import TransformerRingState, flush_transformer_ring
 from smoltts_torch.config import ModelType, tiny_debug_config
 from smoltts_torch.lm.engine import DecodeEngine
@@ -24,6 +24,8 @@ from smoltts_torch.lm.samplers import GenerationSettings
 from smoltts_torch.models.dual_ar import init_params
 from smoltts_torch.ops.quant import quantize_kv
 from smoltts_torch.tokenizer import ByteTokenizer, TokenConfig
+from tests import torch_threads  # noqa: F401  (one intra-op thread)
+from tests.torch_graph_stand_in import stand_in_graphs
 
 CB = 32
 MIMI = dict(
@@ -133,35 +135,15 @@ def test_the_in_place_step_gives_the_chain_of_decode_steps(kv8, entry):
         assert torch.equal(pcm, want)
 
 
-class StandInGraphs(VocoderGraphs):
-    """`VocoderGraphs` on the CPU, its graph a stand-in whose replay runs the
-    eager step over the state, input and output buffers it captured."""
-
-    captures = 0
-
-    @staticmethod
-    def graphed(codes):
-        return True
-
-    def _capture(self, params, cfg, state, codes):
-        type(self).captures += 1
-        static_codes = torch.zeros_like(codes)
-        pcm = torch.zeros((codes.shape[0], codes.shape[2] * cfg.samples_per_frame, 1),
-                          dtype=state.upsample_tail.dtype)
-
-        class Graph:
-            @staticmethod
-            def replay():
-                pcm.copy_(step_in_place(params, cfg, state, static_codes)[1])
-
-        return _Graph(Graph, static_codes, pcm, state, params)
-
-
 def test_graphs_are_held_per_state_and_codes_shape_and_give_fresh_pcm():
+    with stand_in_graphs() as recorder:
+        check_graphs_are_held(recorder)
+
+
+def check_graphs_are_held(recorder):
     mcfg = MimiConfig(**MIMI)
     params = tm.init_mimi_params(mcfg, seed=1, device="cpu")
-    graphs, rng = StandInGraphs(max_graphs=2), np.random.default_rng(5)
-    StandInGraphs.captures = 0
+    graphs, rng = VocoderGraphs(max_graphs=2), np.random.default_rng(5)
     states = [tm.decode_stream_init(mcfg, n, tail_len=8, device="cpu") for n in (2, 1)]
     refs = [clone_state(s) for s in states]
     graphs.capture(params, mcfg, states[0], random_codes(rng, 2))
@@ -176,12 +158,12 @@ def test_graphs_are_held_per_state_and_codes_shape_and_give_fresh_pcm():
             _, pcm = graphs(params, mcfg, states[i], codes)
             outs.append((pcm, want))
             assert_states_equal(states[i], refs[i])
-    assert StandInGraphs.captures == 2 and len(graphs._graphs) == 2
+    assert recorder.records == 2 and len(graphs._graphs) == 2
     for pcm, want in outs:  # each call's PCM is its own
         assert torch.equal(pcm, want)
     graphs(params, mcfg, tm.decode_stream_init(mcfg, 3, tail_len=8, device="cpu"),
            random_codes(rng, 3))
-    assert StandInGraphs.captures == 3 and len(graphs._graphs) == 2  # the oldest dropped
+    assert recorder.records == 3 and len(graphs._graphs) == 2  # the oldest dropped
 
 
 # ---- the callers ---------------------------------------------------------------
